@@ -1,0 +1,27 @@
+"""Architecture registry of the port: only smollm-135m so far.
+
+``get_config(name)`` returns the published configuration, ``get_smoke``
+the reduced one the CPU tests use.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.model import ModelConfig
+
+ALIASES = {"smollm-135m": "smollm_135m", "smollm_135m": "smollm_135m"}
+
+
+def _module(name: str):
+    if name not in ALIASES:
+        raise KeyError(f"{name!r} is not ported; known: {sorted(ALIASES)}")
+    return importlib.import_module(f"repro_torch.configs.{ALIASES[name]}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_smoke(name: str) -> ModelConfig:
+    return _module(name).SMOKE

@@ -1,0 +1,51 @@
+"""Carry the JAX package's parameter tree into the port's tensors.
+
+The input is the reference tree after ``jax.tree.map(np.asarray, params)``:
+dicts and tuples of numpy arrays (bfloat16 arrives as the ``ml_dtypes``
+type), scan-stacked leaves ``(R, ...)``, and the quantized ``*_q`` leaves
+as namedtuple-like objects read by field name.  The tests use it so both
+frameworks compute with the same weights; on the card the port makes its
+own with ``init_params``.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.shiftadd import QuantizedLinearParams
+from repro_torch.models.model import ModelConfig, _check_dense
+
+
+def _tensor(a, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(dev)
+
+
+def _convert(leaf, dev: torch.device):
+    if leaf is None:
+        return None
+    if isinstance(leaf, dict):
+        return {k: _convert(v, dev) for k, v in leaf.items()}
+    fields = getattr(leaf, "_fields", None)
+    if fields is not None:
+        if tuple(fields) != QuantizedLinearParams._fields:
+            raise TypeError(f"unknown record {type(leaf).__name__}{fields}")
+        return QuantizedLinearParams(*(_convert(getattr(leaf, f), dev)
+                                       for f in fields))
+    if isinstance(leaf, (tuple, list)):
+        return tuple(_convert(v, dev) for v in leaf)
+    return _tensor(leaf, dev)
+
+
+def params_from_numpy(cfg: ModelConfig, tree: Any, device=None) -> Any:
+    """The reference tree (numpy leaves) as the port's params on ``device``."""
+    _check_dense(cfg)
+    return _convert(tree, resolve_device(device))

@@ -1,0 +1,54 @@
+"""Attach the QeiHaN representation to a model's projections (port of
+``src/repro/models/quantize.py`` for the dense attention decoder).
+
+Every attention ``wq/wk/wv/wo`` and MLP ``gate/up/down`` leaf gets a
+``QuantizedLinearParams`` under ``<name>_q``, stacked over repeats like
+the float leaf, which stays beside it.  ``pack=True`` stores the planes
+packed 8-to-a-byte along K (the int8-footprint deploy format).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.core.bitplane import pack_planes
+from repro_torch.core.shiftadd import (QuantizedLinearParams,
+                                       quantized_linear_init)
+from repro_torch.models.model import ModelConfig, _check_dense
+
+_ATTN_PROJ = ("wq", "wk", "wv", "wo")
+_MLP_PROJ = ("gate", "up", "down")
+
+
+def _quantize_stacked(w: torch.Tensor, act_scale: float = 1.0,
+                      pack: bool = False) -> QuantizedLinearParams:
+    """w: (R, K, N) stacked over repeats -> stacked quant params."""
+    layers = []
+    for m in w:
+        q = quantized_linear_init(m, act_scale=act_scale)
+        if pack:
+            q = q._replace(planes=pack_planes(q.planes, axis=0))
+        layers.append(q)
+    return QuantizedLinearParams(
+        planes=torch.stack([q.planes for q in layers]),
+        w_scale=torch.stack([q.w_scale for q in layers]),
+        act_scale=torch.stack([q.act_scale for q in layers]),
+        bias=None)
+
+
+def quantize_model_params(cfg: ModelConfig, params: Dict[str, Any],
+                          act_scale: float = 1.0,
+                          pack: bool = False) -> Dict[str, Any]:
+    _check_dense(cfg)
+    blk = dict(params["blocks"][0])
+    for name in _ATTN_PROJ:
+        blk[name + "_q"] = _quantize_stacked(blk[name], act_scale, pack)
+    mlp = dict(blk["mlp"])
+    for name in _MLP_PROJ:
+        mlp[name + "_q"] = _quantize_stacked(mlp[name], act_scale, pack)
+    blk["mlp"] = mlp
+    out = dict(params)
+    out["blocks"] = (blk,)
+    return out
