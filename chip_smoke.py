@@ -27,7 +27,34 @@ Phases, in order; any failure exits non-zero before the result line:
 5. the kernels' time at the decode shapes (M = 4) on the real decode
    step's inputs, by CUDA-graph replay of one step's 210 launches, beside
    their plain versions, their bound (bytes over 3.35 TB/s) and, for K2,
-   the bf16 ``torch.matmul`` of the same shapes as context.
+   the bf16 ``torch.matmul`` of the same shapes as context;
+6. K3, the paged-attention decode, against its plain version on the card:
+   page_len {1, 4, 8} x (G, R) {(1,1), (2,2), (1,3)} x D {8, 16} plus
+   smollm-135m's (3, 3, 64) at page_len 16, splits 1..4, f32 and bf16,
+   at the reference's tolerances (f32 ``rtol=2e-5, atol=2e-6``; bf16
+   ``atol=2e-2``); trash-page poison of +-1e4 bitwise invisible on live
+   rows, length-0 rows finite; ``gather_traffic_counts`` on RAGGED512
+   exactly (57, 128);
+7. the continuous-batching scheduler (``ServeScheduler``) serving
+   full-width smollm-135m (random weights from seed 0) on a paged pool
+   with the radix prefix cache: 8 slots, max_len 512, buckets 16..128,
+   ticks of 8 steps, chunked "auto", page_len 16, split-KV 2, and a trace
+   of 24 requests from seed 0 (8 prefix-free prompts of 16-128 tokens, 4
+   of 200-400 tokens that take the chunked path, 8 that share a 96-token
+   prefix with an earlier request, 4 of them 1-15 tokens more, which ends
+   the hit inside a page: copy on write, and 4 exact repeats), 32 new
+   tokens each.  In f32, the gather read and K3 give equal tokens for
+   every request, float and quantized.  In bf16, K3 float and K3
+   quantized with stats (the slice's main path: every count is set to 0
+   just before it and read just after) report tok/s, wall time, launches
+   (K3 = 30 x decode forwards; K1/K2 = 210 x forwards), prefix-cache
+   stats and traffic fractions; on the tick that touches most pages, K3
+   against its plain version for all 30 layers (real pool, tables and
+   lengths, random queries), then its time by CUDA-graph replay of the
+   step's 30 launches beside its bound (touched K/V pages, q and the
+   partials over 3.35 TB/s), the plain version's time and, as context,
+   ``_paged_gather`` + ``F.scaled_dot_product_attention`` on the same
+   tables.
 
 Prints a ``kernels:`` line, the JSON kernel table and, last, the result
 line ``{"ok": true, "device": {...}}``.  It imports nothing of JAX and
@@ -49,6 +76,12 @@ INT32_OPS_PER_S = 67e12             # CUDA-core 32-bit rate (f32 figure)
 MAIN_KN = [(576, 576), (576, 192), (576, 1536), (1536, 576)]
 BATCH, PROMPT, NEW = 4, 64, 32
 PROJ = ["wq", "wk", "wv", "wo", "gate", "up", "down"]
+F32_TOL = (2e-5, 2e-6)              # rtol, atol (tests/test_paged_attention)
+BF16_TOL = (0.0, 2e-2)
+SERVE = dict(max_slots=8, max_len=512, buckets=(16, 32, 64, 128),
+             tick_steps=8, chunked="auto", paged=True, page_len=16,
+             prefix_cache=True, attn_splits=2)
+SERVE_NEW = 32
 
 
 def fail(msg: str) -> None:
@@ -143,6 +176,7 @@ def main() -> None:
     from repro_torch.kernels.bitplane_matmul import ops as bm_ops
     from repro_torch.kernels.bitplane_matmul.ref import bitplane_matmul_ref
     from repro_torch.kernels.log2quant import ops as l2_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.models.model import forward, init_caches, init_params
     from repro_torch.models.quantize import quantize_model_params
     from repro_torch.serving import engine
@@ -163,11 +197,12 @@ def main() -> None:
         _build.build_all()
         l2_ops._lib()
         bm_ops._lib()
+        pa_ops._lib()
     except RuntimeError as e:
         fail(f"kernel build failed: {e}")
     print(f"phase 1: built {[p.name for p in _build.sources()]} in "
           f"{time.perf_counter() - t0:.1f} s")
-    for stem in ("log2quant", "bitplane_matmul"):
+    for stem in ("log2quant", "bitplane_matmul", "paged_attention"):
         for line in _build.build_log(stem).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {stem}: {line.strip()}")
@@ -438,6 +473,13 @@ def main() -> None:
     print("  K2 per launch by (K, N), us: "
           + ", ".join(f"{s} {v:.2f}" for s, v in per_shape.items()))
 
+    # -- phase 6: K3 against its plain version ------------------------------
+    k3_err = phase6(torch, dev, pa_ops)
+
+    # -- phase 7: the continuous-batching scheduler at full width -----------
+    k3 = phase7(torch, dev, card, pa_ops, l2_ops, bm_ops)
+    k3_err = max(k3_err, k3["max_abs_err"])
+
     table = []
     for kname, src, replaces, err in (
             ("log2quant", "src/repro_torch/kernels/log2quant/csrc/"
@@ -457,12 +499,442 @@ def main() -> None:
         if kname == "bitplane_matmul":
             entry["context_matmul_ms"] = t_mm
         table.append(entry)
-    print('kernels: ["log2quant", "bitplane_matmul"]')
+    table.append({
+        "name": "paged_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/paged_attention/csrc/"
+                  "paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention/kernel.py:219",
+        "launches": k3["launches"], "max_abs_err": k3_err, "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
+        "scope": k3["scope"], "eager_ms": k3["eager_ms"]})
+    print('kernels: ["log2quant", "bitplane_matmul", "paged_attention"]')
     print(json.dumps({"kernels": table}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
+
+
+def close(torch, out, ref, tol) -> float:
+    """max |out - ref|; fails unless |out - ref| <= atol + rtol * |ref|."""
+    rtol, atol = tol
+    diff = (out.float() - ref.float()).abs()
+    ok = bool((diff <= atol + rtol * ref.float().abs()).all())
+    err = float(diff.max()) if diff.numel() else 0.0
+    return err if ok else -err
+
+
+def paged_case(torch, dev, page_len, nb, g, r, d, lengths, dtype, poison,
+               seed):
+    """Pool + table laid out as the scheduler lays them out: each row's
+    first ceil(len / page_len) entries name fresh pages, the rest the
+    trash page 0, which holds ``poison``."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+
+    gen = torch.Generator().manual_seed(seed)
+    b = len(lengths)
+    n_pages = 1 + b * nb
+    k = torch.randn((n_pages, page_len, g, d), generator=gen)
+    v = torch.randn((n_pages, page_len, g, d), generator=gen)
+    k[0] = poison
+    v[0] = poison
+    table = torch.from_numpy(pa_ops.make_page_table(lengths, nb, page_len))
+    q = torch.randn((b, g, r, d), generator=gen)
+    return (q.to(dtype).to(dev), k.to(dtype).to(dev), v.to(dtype).to(dev),
+            table.to(dev), torch.tensor(lengths, dtype=torch.int32,
+                                        device=dev))
+
+
+def k3_against_plain(torch, pa_ops, qg, k, v, table, lens, splits, what):
+    """Kernel and plain partials of one call; returns the merged outputs'
+    max |diff| (fails outside the dtype's tolerance)."""
+    nb = table.shape[1]
+    pt = torch.nn.functional.pad(table, (0, (-nb) % splits))
+    o, m, l = pa_ops.paged_attention(qg, k, v, pt, lens, splits)
+    po, pm, pl = pa_ops.paged_attention_plain(qg, k, v, pt, lens, splits)
+    torch.cuda.synchronize()
+    check(torch.equal(m <= pa_ops.NEG_INF / 2, pm <= pa_ops.NEG_INF / 2),
+          f"K3 ({what}): the splits holding a valid token differ")
+    f32 = qg.dtype == torch.float32
+    if f32:
+        for a, e, nm in ((o, po, "o"), (m, pm, "m"), (l, pl, "l")):
+            check(close(torch, a, e, F32_TOL) >= 0,
+                  f"K3 ({what}): partial {nm} outside f32 tolerance")
+    out = pa_ops.merge_split_softmax(m, l, o, axis=2)
+    ref = pa_ops.merge_split_softmax(pm, pl, po, axis=2)
+    check(bool(torch.isfinite(out).all()), f"K3 ({what}): non-finite out")
+    live = lens > 0
+    err = close(torch, out[live], ref[live], F32_TOL if f32 else BF16_TOL)
+    check(err >= 0, f"K3 ({what}): merged output differs from the plain "
+          f"version by {-err}")
+    return err
+
+
+def phase6(torch, dev, pa_ops) -> float:
+    geos = [(pl, nb, g, r, d) for pl, nb in ((1, 4), (4, 4), (8, 3))
+            for g, r in ((1, 1), (2, 2), (1, 3)) for d in (8, 16)]
+    geos.append((16, 8, 3, 3, 64))
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n = 0
+    for i, (pl, nb, g, r, d) in enumerate(geos):
+        mx = pl * nb
+        lengths = [x for x in dict.fromkeys(
+            [0, 1, pl - 1, pl, pl + 1, 2 * pl, mx]) if 0 <= x <= mx]
+        for dtype in errs:
+            q, k, v, table, lens = paged_case(torch, dev, pl, nb, g, r, d,
+                                              lengths, dtype, 1e4, i)
+            for splits in (1, 2, 3, 4):
+                errs[dtype] = max(errs[dtype], k3_against_plain(
+                    torch, pa_ops, q, k, v, table, lens, splits,
+                    f"page_len {pl} G {g} R {r} D {d} {dtype} splits "
+                    f"{splits}"))
+                n += 1
+    poisoned = 0
+    for dtype in errs:
+        for pl, g, r, d in ((4, 2, 2, 8), (16, 3, 3, 64)):
+            lengths = [0, 1, 3, 4, 5, 16, 4 * pl]
+            live = torch.tensor(lengths, device=dev) > 0
+            for splits in (1, 2, 3):
+                outs = []
+                for poison in (0.0, 1e4, -1e4):
+                    q, k, v, table, lens = paged_case(
+                        torch, dev, pl, 4, g, r, d, lengths, dtype, poison,
+                        11)
+                    out = pa_ops.paged_decode_attention(
+                        q.reshape(len(lengths), 1, g * r, d), k, v, table,
+                        lens, splits=splits)
+                    check(bool(torch.isfinite(out.float()).all()),
+                          "K3: non-finite output under trash poison")
+                    outs.append(out)
+                for out in outs[1:]:
+                    check(torch.equal(out[live], outs[0][live]),
+                          f"K3: trash poison reached a live row ({dtype}, "
+                          f"page_len {pl}, splits {splits})")
+                poisoned += 1
+    geo = pa_ops.RAGGED512
+    rag = pa_ops.make_page_table(geo["lengths"], geo["nb"], geo["page_len"])
+    counts = pa_ops.gather_traffic_counts(rag, geo["lengths"],
+                                          geo["page_len"])
+    check(counts == (57.0, 128.0), f"RAGGED512 traffic {counts}")
+    q, k, v, _, lens = paged_case(torch, dev, geo["page_len"], geo["nb"],
+                                  geo["g"], geo["r"], geo["d"],
+                                  list(geo["lengths"]), torch.float32, 0.0,
+                                  512)
+    for splits in (1, 4):
+        errs[torch.float32] = max(errs[torch.float32], k3_against_plain(
+            torch, pa_ops, q, k, v, torch.from_numpy(rag).to(dev), lens,
+            splits, f"RAGGED512 splits {splits}"))
+    print(f"phase 6: K3 within tolerance of its plain version in {n + 2} "
+          f"cases (max |diff| f32 {errs[torch.float32]:.3e}, bf16 "
+          f"{errs[torch.bfloat16]:.3e}); trash poison +-1e4 bitwise "
+          f"invisible on live rows in {poisoned} cases; RAGGED512 touched/"
+          f"total pages {counts[0]:.0f}/{counts[1]:.0f}")
+    return max(errs.values())
+
+
+def audited(torch, inner, audit):
+    """``paged_decode_attention`` that also runs the dense-gather oracle
+    (``kernels/paged_attention/ref.py``, op for op the gather read) on
+    the same inputs: counts calls, keeps the max |diff| on the rows of
+    slots holding pages, counts tolerance failures and those rows'
+    elements whose LOG2 code (4 bits, as the next projection quantizes
+    them) differs."""
+    from repro_torch.core.logquant import log2_quantize
+    from repro_torch.kernels.paged_attention.ref import \
+        paged_attention_reference
+
+    def call(q, k_pool, v_pool, page_table, lengths, *, splits=1):
+        out = inner(q, k_pool, v_pool, page_table, lengths, splits=splits)
+        ref = paged_attention_reference(q, k_pool, v_pool, page_table,
+                                        lengths)
+        # rows of slots that hold pages (a retired slot's table is all
+        # trash; its row is junk nobody reads)
+        live = (lengths > 0) & (page_table[:, 0] != 0)
+        err = close(torch, out[live], ref[live], F32_TOL)
+        audit["calls"] += 1
+        audit["bad"] += err < 0
+        audit["err"] = max(audit["err"], abs(err))
+        a, e = log2_quantize(out[live].float()), log2_quantize(
+            ref[live].float())
+        audit["flips"] += int(((a.exp != e.exp) | (a.sign != e.sign)).sum())
+        return out
+    return call
+
+
+def serve_trace(vocab: int):
+    """24 requests from seed 0 (see the module docstring)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+
+    def tok(n):
+        return rng.integers(0, vocab, size=int(n)).astype(np.int32)
+
+    # the first four are long enough to donate 7 whole pages
+    free = [tok(n) for n in (112, 120, 128, 116)]
+    free += [tok(n) for n in rng.integers(16, 129, size=4)]
+    longs = [tok(n) for n in rng.integers(200, 401, size=4)]
+    sharers = []
+    for i in range(8):
+        extra = int(rng.integers(1, 16)) if i % 2 else 0
+        sharers.append(np.concatenate(
+            [free[i % 4][:96 + extra], tok(rng.integers(5, 41))]))
+    repeats = [free[j].copy() for j in (4, 5, 6, 7)]
+    return free + longs + sharers + repeats
+
+
+def serve(torch, dev, cfg, trace, *, quant, kernel, stats, counters,
+          on_tick=None):
+    """Serve the trace through ServeScheduler; returns (results, sched,
+    forwards, wall seconds).  ``counters`` are zeroed just before the run;
+    ``forwards`` counts the decode steps, chunk forwards and bucketed
+    prefills the scheduler issued."""
+    from repro_torch.models.model import init_params
+    from repro_torch.models.quantize import quantize_model_params
+    from repro_torch.serving import ServeConfig, ServeScheduler
+
+    params = init_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    if quant:
+        params = quantize_model_params(cfg, params)
+    sc = ServeConfig(**SERVE, attn_kernel="pallas" if kernel else "off",
+                     quant="pallas" if quant else False, with_stats=stats)
+    sched = ServeScheduler(cfg, params, sc)
+    fwd = {"decode": 0, "chunk": 0, "prefill": 0}
+
+    def counted(fn, key):
+        def call(*a):
+            fwd[key] += 1
+            return fn(*a)
+        return call
+
+    sched._step = counted(sched._step, "decode")
+    sched._chunk_step = counted(sched._chunk_step, "chunk")
+    sched._slot_prefill = counted(sched._slot_prefill, "prefill")
+    for p in trace:
+        sched.submit(p, max_new=SERVE_NEW)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    def generated():
+        return (sum(len(sl.tokens) for sl in sched._slots if sl is not None)
+                + sum(len(r.tokens) for r in sched._results.values()))
+
+    # decode-only ticks (no admission prefill, no chunk): their tokens and
+    # host-clock time (step_tick ends in the tick's one synchronisation)
+    decode = {"tokens": 0, "s": 0.0, "ticks": 0}
+    t0 = time.perf_counter()
+    while sched.pending:
+        before = (generated(), fwd["chunk"], fwd["prefill"])
+        t1 = time.perf_counter()
+        check(sched.step_tick(), "a tick found nothing to do")
+        dt = time.perf_counter() - t1
+        if before[1:] == (fwd["chunk"], fwd["prefill"]):
+            decode["tokens"] += generated() - before[0]
+            decode["s"] += dt
+            decode["ticks"] += 1
+        if on_tick is not None:
+            on_tick(sched)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd["decode_only"] = decode
+    results = sched.run()
+    check(len(results) == len(trace), f"{len(results)} results")
+    for r in results:
+        check(r.finish_reason == "length" and len(r.tokens) == SERVE_NEW
+              and all(0 <= t < cfg.vocab_size for t in r.tokens),
+              f"request {r.rid}: {r.finish_reason}, {len(r.tokens)} tokens")
+    return results, sched, fwd, wall
+
+
+def phase7(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import _paged_gather
+
+    cfg = get_config("smollm-135m")
+    trace = serve_trace(cfg.vocab_size)
+    kernels = (pa_ops.paged_attention, l2_ops.log2quant,
+               bm_ops.bitplane_matmul)
+    print(f"phase 7: ServeScheduler, {cfg.name} full width, {SERVE}, "
+          f"{len(trace)} requests (prompts "
+          f"{min(len(p) for p in trace)}-{max(len(p) for p in trace)} "
+          f"tokens), {SERVE_NEW} new tokens each")
+
+    # f32: the gather read and K3, float and quantized.  Every K3 call of
+    # the K3 runs is also held against the dense-gather oracle on the same
+    # inputs (the gather path's own arithmetic); the LOG2 codes of the two
+    # outputs — what the quantized path's wo projection reads next — are
+    # compared too
+    c32 = cfg.replace(dtype=torch.float32)
+    for quant in (False, True):
+        toks = {}
+        for kernel in (False, True):
+            audit = {"calls": 0, "err": 0.0, "bad": 0, "flips": 0}
+            inner = pa_ops.paged_decode_attention
+            if kernel:
+                pa_ops.paged_decode_attention = audited(torch, inner, audit)
+            try:
+                res, _, fwd, wall = serve(torch, dev, c32, trace,
+                                          quant=quant, kernel=kernel,
+                                          stats=False, counters=kernels)
+            finally:
+                pa_ops.paged_decode_attention = inner
+            want = cfg.n_layers * fwd["decode"] if kernel else 0
+            check(pa_ops.paged_attention.launches == want,
+                  f"K3 launched {pa_ops.paged_attention.launches} times, "
+                  f"expected {want}")
+            check(audit["calls"] == want and audit["bad"] == 0,
+                  f"K3 against the gather oracle: {audit}")
+            toks[kernel] = [r.tokens for r in res]
+            fwd.pop("decode_only")
+            print(f"  f32 {'quant' if quant else 'float'} "
+                  f"{'K3' if kernel else 'gather'}: {wall:.3f} s, {fwd}"
+                  + (f"; every K3 call within f32 tolerance of the gather "
+                     f"oracle ({audit['calls']} calls, max |diff| "
+                     f"{audit['err']:.3e}), LOG2 codes of the output "
+                     f"differing on live rows: {audit['flips']}"
+                     if kernel else ""))
+        same = [a == b for a, b in zip(toks[False], toks[True])]
+        first = [next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+                 for a, b in zip(toks[False], toks[True]) if a != b]
+        tag = "quant" if quant else "float"
+        print(f"  f32 {tag}: K3 tokens equal the gather's for {sum(same)}/"
+              f"{len(trace)} requests"
+              + (f" (first differing token at {first})" if first else ""))
+        # float: equal tokens.  Quantized: equal tokens unless a LOG2 code
+        # of an attention output differs between K3 and the gather math;
+        # the codes being equal everywhere makes the two runs identical
+        check(all(same) or (quant and audit["flips"] > 0),
+              f"f32 {tag}: K3 tokens differ from the gather's for "
+              f"{len(trace) - sum(same)} requests with no LOG2 code of an "
+              f"attention output differing")
+
+    # bf16 K3 float, then the main path: K3 quantized with stats
+    best = {"touched": -1}
+
+    def on_tick(sched):
+        lens = sched._pool["length"].cpu() + 1
+        touched = int(((lens + 15) // 16).sum())
+        if touched > best["touched"]:
+            best.update(touched=touched, lens=lens.to(dev),
+                        table=torch.from_numpy(sched._table.copy()).to(dev),
+                        k=sched._pool["layers"][0]["k"].clone(),
+                        v=sched._pool["layers"][0]["v"].clone())
+
+    out = {}
+    for quant in (False, True):
+        res, sched, fwd, wall = serve(
+            torch, dev, cfg, trace, quant=quant, kernel=True, stats=quant,
+            counters=kernels, on_tick=on_tick if quant else None)
+        launches = {k.__name__: k.launches for k in kernels}
+        dec = fwd.pop("decode_only")
+        per_fwd = cfg.n_layers * len(PROJ)
+        n_fwd = sum(fwd.values())
+        check(launches["paged_attention"] == cfg.n_layers * fwd["decode"],
+              f"K3 launches {launches['paged_attention']} != "
+              f"{cfg.n_layers} x {fwd['decode']} decode forwards")
+        if quant:
+            for kn in ("log2quant", "bitplane_matmul"):
+                check(launches[kn] == per_fwd * n_fwd,
+                      f"{kn} launched {launches[kn]} times, expected "
+                      f"{per_fwd} x {n_fwd} forwards")
+        else:
+            check(launches["log2quant"] == launches["bitplane_matmul"] == 0,
+                  "the float run launched a quantized kernel")
+        total = sum(len(r.tokens) for r in res)
+        st = sched.prefix_cache_stats()
+        check(st["cached_tokens"] > 0 and st["cached_tokens"] % 16 != 0,
+              f"prefix cache stats {st}: expected whole-page and "
+              f"copy-on-write hits")
+        tag = "quant+stats" if quant else "float"
+        print(f"  bf16 {tag} K3: {total} tokens in {wall:.3f} s = "
+              f"{total / wall:.1f} tok/s (prefill included, eager); "
+              f"decode-only ticks: {dec['tokens']} tokens in "
+              f"{dec['s']:.3f} s = {dec['tokens'] / max(dec['s'], 1e-9):.1f}"
+              f" tok/s over {dec['ticks']} ticks; forwards {fwd}; launches "
+              f"{launches}")
+        print(f"    prefix cache: hit_rate {st['hit_rate']:.6f}, "
+              f"cached_tokens {st['cached_tokens']:.0f}/"
+              f"{st['prompt_tokens']:.0f}, lookups hit "
+              f"{st['lookup_hits']:.0f}/{st['lookups']:.0f}, pages_in_use "
+              f"{st['pages_in_use']:.0f}")
+        if quant:
+            tile = sum(r.plane_traffic_fraction for r in res) / len(res)
+            elem = sum(r.element_traffic_fraction for r in res) / len(res)
+            check(0 < elem <= tile <= 1, f"traffic fractions {tile} {elem}")
+            print(f"    mean per-request plane_traffic_fraction {tile:.6f}, "
+                  f"element_traffic_fraction {elem:.6f}")
+            out["launches"] = launches["paged_attention"]
+
+    # K3 on the tick that touched most pages: real pool, table, lengths
+    lens, table = best["lens"].to(torch.int32), best["table"]
+    b, nb = table.shape
+    g, d = cfg.n_kv_heads, cfg.head_dim
+    r = cfg.n_heads // g
+    splits = SERVE["attn_splits"]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    qs = [torch.randn((b, g, r, d), generator=gen, device=dev,
+                      dtype=cfg.dtype) for _ in range(cfg.n_layers)]
+    err = 0.0
+    for layer in range(cfg.n_layers):
+        err = max(err, k3_against_plain(
+            torch, pa_ops, qs[layer], best["k"][layer], best["v"][layer],
+            table, lens, splits, f"full-width tick, layer {layer}"))
+    print(f"  tick with {best['touched']} touched pages (lengths "
+          f"{lens.tolist()}): K3 within bf16 tolerance of its plain version "
+          f"on all {cfg.n_layers} layers (max |diff| {err:.3e})")
+
+    def k3_step():
+        for layer in range(cfg.n_layers):
+            pa_ops.paged_attention(qs[layer], best["k"][layer],
+                                   best["v"][layer], table, lens, splits)
+
+    def plain_step():
+        for layer in range(cfg.n_layers):
+            pa_ops.paged_attention_plain(qs[layer], best["k"][layer],
+                                         best["v"][layer], table, lens,
+                                         splits)
+
+    valid = (torch.arange(nb * SERVE["page_len"], device=dev)[None]
+             < lens[:, None])[:, None, None, :]          # (B, 1, 1, S)
+
+    def library_step():
+        for layer in range(cfg.n_layers):
+            kg = _paged_gather(best["k"][layer], table).transpose(1, 2)
+            vg = _paged_gather(best["v"][layer], table).transpose(1, 2)
+            torch.nn.functional.scaled_dot_product_attention(
+                qs[layer].reshape(b, g * r, 1, d), kg, vg, attn_mask=valid,
+                enable_gqa=True)
+
+    ms, plain_ms = graph_ms(torch, k3_step), graph_ms(torch, plain_step)
+    lib_ms = graph_ms(torch, library_step)
+    eager = eager_ms(torch, k3_step)
+    esz = torch.tensor([], dtype=cfg.dtype).element_size()
+    touched = int(((lens.cpu() + SERVE["page_len"] - 1)
+                   // SERVE["page_len"]).sum())
+    kv_bytes = touched * SERVE["page_len"] * g * d * 2 * esz
+    io_bytes = (b * g * r * d * esz + b * g * splits * r * (d + 2) * 4
+                + b * nb * 4 + b * 4)
+    step_bytes = cfg.n_layers * (kv_bytes + io_bytes)
+    step_ops = cfg.n_layers * 4 * g * r * d * int(lens.sum())
+    t_bytes = step_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = step_ops / INT32_OPS_PER_S * 1e3
+    print(f"  K3 per decode step ({cfg.n_layers} launches, B={b}, "
+          f"splits {splits}), CUDA-graph replay on {card}: {ms:.4f} ms "
+          f"({ms / cfg.n_layers * 1e3:.2f} us per launch); bound "
+          f"{max(t_bytes, t_ops):.5f} ms ({step_bytes} bytes: {touched} "
+          f"touched pages x {SERVE['page_len']} tokens x {g * d * 2 * esz} "
+          f"B per layer + q + partials); plain {plain_ms:.4f} ms; issued eagerly "
+          f"{eager:.4f} ms; context: _paged_gather + "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms (the port never "
+          f"calls it)")
+    out.update(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               library_ms=lib_ms, eager_ms=eager, max_abs_err=err,
+               scope=f"one decode step: {cfg.n_layers} launches, B={b}, "
+                     f"{touched} touched pages, splits {splits}")
+    return out
 
 
 def _to(torch, tree, dev):

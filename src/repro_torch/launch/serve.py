@@ -1,13 +1,27 @@
-"""Serving CLI, one-shot mode (port of the one-shot path of
-``src/repro/launch/serve.py``).
+"""Serving CLI (port of ``src/repro/launch/serve.py`` without its mesh
+and disaggregation options).
+
+One-shot mode: random weights from ``--seed``, a random prompt batch,
+prefill, then the decode loop; prints the prefill time, decode tok/s, the
+tile- and element-granular plane-traffic fractions (``--quant``) and
+sample tokens::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         [--smoke] [--batch 4] [--prompt-len 32] [--new-tokens 16] \
         [--quant] [--pack] [--eos-id N] [--seed 0] [--device cuda|cpu]
 
-Random weights from ``--seed``, a random prompt batch, prefill, then the
-decode loop; prints the prefill time, decode tok/s, the tile- and
-element-granular plane-traffic fractions (``--quant``) and sample tokens.
+``--continuous`` serves a queued trace of variable-length prompts through
+the continuous-batching scheduler (``serving/scheduler.py``); the flags
+map to a ``ServeConfig`` exactly as the reference's do, so
+``--dump-config`` writes the same JSON and ``--config`` reads either
+package's::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+        --continuous --requests 16 --max-slots 4 --new-tokens 16 \
+        [--chunked [auto|always]] [--chunk-len N] [--paged] [--page-len N] \
+        [--prefix-cache] [--attn-kernel] [--attn-splits N] [--quant] \
+        [--config serve.json] [--dump-config [PATH]]
+
 The device defaults to the card; ``--device cpu`` runs the plain-PyTorch
 path on the host.
 """
@@ -15,8 +29,10 @@ path on the host.
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -29,6 +45,116 @@ from repro_torch.serving.engine import make_decode_loop, make_prefill_step
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def build_serve_config(args):
+    """Flags -> :class:`~repro_torch.serving.config.ServeConfig` for
+    ``--continuous``, the reference's mapping: buckets from
+    ``--prompt-len``, a pool long enough for the longest trace prompt plus
+    generation and one tick, rounded once to the lcm of the chunk and
+    page lengths."""
+    from repro_torch.serving.config import ServeConfig
+    from repro_torch.serving.scheduler import round_pool_len
+
+    buckets = tuple(sorted({8, 16, max(8, args.prompt_len)}))
+    chunked = args.chunked or "off"
+    chunk_len = args.chunk_len or 8
+    long_max = (3 * args.prompt_len) if chunked != "off" else args.prompt_len
+    pool = max(long_max, max(buckets)) + args.new_tokens + args.tick_steps
+    quantum = 1
+    if chunked != "off" or args.prefix_cache:
+        quantum = chunk_len
+    paged = bool(args.paged or args.prefix_cache or args.attn_kernel)
+    if paged:
+        quantum = math.lcm(quantum, args.page_len)
+    if quantum > 1:
+        pool = round_pool_len(pool, quantum)
+    return ServeConfig(
+        max_slots=args.max_slots, max_len=pool, buckets=buckets,
+        quant="pallas" if args.quant else False, with_stats=args.quant,
+        tick_steps=args.tick_steps, chunked=chunked, chunk_len=chunk_len,
+        paged=paged, page_len=args.page_len, prefix_cache=args.prefix_cache,
+        attn_kernel="pallas" if args.attn_kernel else "off",
+        attn_splits=args.attn_splits)
+
+
+def _load_serve_config(args):
+    """``--config path.json`` if given, else the flags' config."""
+    from repro_torch.serving.config import ServeConfig
+
+    if args.config is None:
+        return build_serve_config(args)
+    with open(args.config) as fh:
+        return ServeConfig.from_json(fh.read())
+
+
+def _serve_continuous(cfg, params, args, dev):
+    """Submit a seeded trace, drain it, report tok/s, latency, plane
+    traffic and prefix-cache hits.  With chunking the trace draws prompts
+    up to 3x ``--prompt-len``; with the prefix cache 3 in 4 prompts start
+    with a shared half-length prefix."""
+    from repro_torch.serving.scheduler import ServeScheduler
+
+    config = _load_serve_config(args)
+    chunked = config.chunked
+    long_max = ((3 * args.prompt_len) if chunked != "off"
+                else args.prompt_len)
+    sched = ServeScheduler(cfg, params, config, device=dev)
+    rng = np.random.default_rng(args.seed)
+    prefix = (rng.integers(0, cfg.vocab_size, size=max(args.prompt_len // 2,
+                                                       config.page_len))
+              .astype(np.int32) if config.prefix_cache else None)
+    for _ in range(args.requests):
+        n = int(rng.integers(2, long_max + 1))
+        p = rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+        if prefix is not None and rng.random() < 0.75:
+            p = np.concatenate([prefix, p])[:max(long_max, len(prefix) + 2)]
+        sched.submit(p, max_new=args.new_tokens, eos_id=args.eos_id)
+    _sync(dev)
+    t0 = time.perf_counter()
+    results = sched.run()
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    total = sum(len(r.tokens) for r in results)
+    tag = "" if chunked == "off" else f", chunked={chunked}/{config.chunk_len}"
+    if config.paged:
+        tag += (f", paged/{config.page_len}"
+                + ("+prefix" if config.prefix_cache else "")
+                + (f"+kernel/s{config.attn_splits}"
+                   if config.attn_kernel != "off" else ""))
+    print(f"[serve] {cfg.name} on {dev}: continuous batching{tag} — "
+          f"{len(results)} requests, {config.max_slots} slots, "
+          f"tick={config.tick_steps}: {total} tokens in {dt:.3f}s "
+          f"({total / max(dt, 1e-9):.1f} tok/s, eager)")
+    served = [r for r in results if r.finish_reason != "rejected"]
+    if served:
+        ttft = [r.first_token_time - r.submit_time for r in served]
+        e2e = [r.finish_time - r.submit_time for r in served]
+        print(f"[serve] latency: ttft p50/p95 "
+              f"{np.percentile(ttft, 50) * 1e3:.1f}/"
+              f"{np.percentile(ttft, 95) * 1e3:.1f} ms, e2e p50/p95 "
+              f"{np.percentile(e2e, 50) * 1e3:.1f}/"
+              f"{np.percentile(e2e, 95) * 1e3:.1f} ms; {len(served)}/"
+              f"{len(results)} served, longest prompt "
+              f"{max(r.prompt_len for r in served)} tokens "
+              f"(buckets cap {max(config.buckets)})")
+    if args.quant and served:
+        tile = float(np.mean([r.plane_traffic_fraction for r in served]))
+        elem = float(np.mean([r.element_traffic_fraction for r in served]))
+        print(f"[serve] per-request plane_traffic_fraction: {tile:.3f} "
+              f"tile-granular, {elem:.3f} element-granular")
+    if config.prefix_cache:
+        st = sched.prefix_cache_stats()
+        print(f"[serve] prefix cache: hit_rate {st['hit_rate']:.3f} "
+              f"({int(st['cached_tokens'])}/{int(st['prompt_tokens'])} "
+              f"prompt tokens from shared pages, "
+              f"{int(st['lookup_hits'])}/{int(st['lookups'])} lookups hit; "
+              f"pages {int(st['pages_in_use'])} in use / "
+              f"{int(st['pages_free'])} free)")
+    if results:
+        r0 = results[0]
+        print(f"sample request 0 ({r0.finish_reason}):", r0.tokens[:8])
+    return results
 
 
 def main(argv=None):
@@ -47,7 +173,49 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
+    # continuous-batching mode
+    ap.add_argument("--continuous", action="store_true",
+                    help="serve a queued request trace through the slot "
+                         "scheduler instead of one rectangular batch")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--max-slots", type=int, default=4)
+    ap.add_argument("--tick-steps", type=int, default=8)
+    ap.add_argument("--chunked", nargs="?", const="auto", default=None,
+                    choices=["off", "auto", "always"],
+                    help="chunked prefill; bare --chunked means 'auto' "
+                         "(only over-bucket prompts chunk)")
+    ap.add_argument("--chunk-len", type=int, default=None,
+                    help="tokens ingested per chunk per tick (default 8)")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV pool: slots share fixed-size pages "
+                         "through per-slot page tables")
+    ap.add_argument("--page-len", type=int, default=16,
+                    help="tokens per KV page (paged mode)")
+    ap.add_argument("--attn-kernel", action="store_true",
+                    help="paged-attention decode kernel (implies --paged): "
+                         "walks the page tables instead of gathering them")
+    ap.add_argument("--attn-splits", type=int, default=1,
+                    help="split-KV partials of the paged-attention kernel")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix prefix cache over the paged pool (implies "
+                         "--paged); the trace draws shared-prefix prompts")
+    ap.add_argument("--config", default=None, metavar="PATH",
+                    help="load the continuous-mode ServeConfig from this "
+                         "JSON file instead of deriving it from the flags")
+    ap.add_argument("--dump-config", nargs="?", const="-", default=None,
+                    metavar="PATH",
+                    help="print (or write to PATH) the ServeConfig JSON the "
+                         "flags derive, then exit")
     args = ap.parse_args(argv)
+
+    if args.dump_config is not None:
+        text = _load_serve_config(args).to_json(indent=2)
+        if args.dump_config == "-":
+            print(text)
+        else:
+            with open(args.dump_config, "w") as fh:
+                fh.write(text + "\n")
+        return None
 
     dev = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
@@ -55,6 +223,8 @@ def main(argv=None):
     params = init_params(cfg, generator=gen, device=dev)
     if args.quant:
         params = quantize_model_params(cfg, params, pack=args.pack)
+    if args.continuous:
+        return _serve_continuous(cfg, params, args, dev)
     caches = init_caches(cfg, args.batch, args.prompt_len + args.new_tokens,
                          dtype=cfg.dtype, device=dev)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),

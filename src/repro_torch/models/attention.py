@@ -1,14 +1,21 @@
-"""GQA attention: flash-style chunked prefill and KV-cache decode (forward
-only; port of the dense branches of ``src/repro/models/attention.py``).
+"""GQA attention: flash-style chunked prefill, KV-cache decode, and the
+paged slot pool (forward only; port of ``src/repro/models/attention.py``
+without its log2-quantized page pool).
 
 Queries reshape to (B, S, G, R, D) with G = kv heads and R = group size,
 so K/V are never repeated.  Scores and the PV product accumulate in
 float32 (bf16 inputs widen exactly); ``p`` is cast to the V dtype before
 PV, masked scores take the finite ``NEG_INF``, as in the reference.
 
-The dense ``KVCache`` is updated in place: prefill writes the fresh K/V at
-``length`` and attends over them, decode writes one row and attends over
-the cache.
+Caches are updated in place, with the reference's write semantics: the
+dense ``KVCache`` takes a scalar length (one-shot serving) or per-slot
+``(B,)`` lengths (the continuous-batching slot pool), whose per-row writes
+clamp their start to ``max_len - S`` as ``lax.dynamic_update_slice``
+does; the paged ``PagedKVCache`` scatters rows into a shared page pool at
+(page, offset) and redirects masked rows to the trash page 0.  Decode over
+the paged pool either gathers the slot's pages into its dense view or,
+with ``cfg.paged_attn_kernel != "off"``, walks the page table in the
+paged-attention kernel (``kernels/paged_attention``).
 """
 
 from __future__ import annotations
@@ -100,19 +107,94 @@ def _decode_attention(q, k, v, q_positions, kv_positions, kv_valid_len):
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
+def _chunk_attention(q, k, v, q_positions, kv_positions, kv_valid_len):
+    """q: (B, S, H, D) chunk queries against the full cache — the S-query
+    form of :func:`_decode_attention`: one masked product and one softmax.
+    Used by chunked prefill, whose queries must see earlier chunks' K/V
+    in the cache, not only the fresh chunk's."""
+    b, sq, h, d = q.shape
+    g = k.shape[2]
+    qg = _grouped(q, g).float()                          # (B, S, G, R, D)
+    s = torch.einsum("bsgrd,bkgd->bgrsk", qg, k.float()) / math.sqrt(d)
+    mask = (kv_positions[:, None, None, None, :]
+            <= q_positions[:, None, None, :, None])
+    if kv_valid_len is not None:
+        idx = torch.arange(k.shape[1], device=q.device)
+        mask = mask & (idx[None, None, None, None, :]
+                       < kv_valid_len[:, None, None, None, None])
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgrsk,bkgd->bsgrd", p.to(q.dtype).float(), v.float())
+    return out.reshape(b, sq, h, d).to(q.dtype)
+
+
 class KVCache(NamedTuple):
     k: torch.Tensor           # (B, S_max, G, D)
     v: torch.Tensor
-    length: int               # tokens currently valid (whole batch)
+    length: object            # int (whole batch) or (B,) int32 per slot
+
+
+class PagedKVCache(NamedTuple):
+    """Paged slot-pool KV: a pool of fixed-size pages shared by every slot;
+    each slot's logical ``(max_len, G, D)`` cache is the run of pages its
+    page-table row names.  Entry 0 is the trash page: masked writes go
+    there, and nothing reads it unmasked."""
+    k: torch.Tensor           # (P, page_len, G, D) page pool
+    v: torch.Tensor
+    page_table: torch.Tensor  # (B, n_blocks) int32 page ids, 0 = trash
+    length: torch.Tensor      # (B,) int32 per-slot valid lengths
+
+
+def _paged_write(pool: torch.Tensor, table: torch.Tensor, new: torch.Tensor,
+                 pos: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """Scatter ``new`` (B, S, G, D) rows into the page pool, in place.
+
+    ``pos`` (B, S) are absolute token positions (page ``table[b, pos //
+    page_len]``, offset ``pos % page_len``); rows where ``keep`` is False
+    or whose block lies past the table go to the trash page, offset 0."""
+    page_len = pool.shape[1]
+    nb = table.shape[1]
+    blk = torch.clamp(pos // page_len, 0, nb - 1).long()
+    page = torch.gather(table.long(), 1, blk)
+    in_alloc = keep & (pos // page_len < nb)
+    page = torch.where(in_alloc, page, 0)
+    off = torch.where(in_alloc, pos % page_len, 0).long()
+    vals = new.reshape((-1,) + tuple(new.shape[2:])).to(pool.dtype)
+    pool[page.reshape(-1), off.reshape(-1)] = vals
+    return pool
+
+
+def _paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Each slot's pages as its dense logical view: ``(P, page_len, G, D)``
+    pool + ``(B, n_blocks)`` table -> ``(B, n_blocks * page_len, G, D)``;
+    junk rows (trash, unwritten) are masked by the caller."""
+    b, nb = table.shape
+    g = pool[table.long()]                   # (B, nb, page_len, G, D)
+    return g.reshape((b, nb * pool.shape[1]) + tuple(pool.shape[2:]))
+
+
+def _slab_rows(length: torch.Tensor, s: int, s_max: int):
+    """Row indices of an S-row per-slot write at each row's ``length``,
+    the start clamped to ``[0, s_max - s]`` as ``dynamic_update_slice``
+    clamps it in the reference."""
+    start = torch.clamp(length.long(), 0, s_max - s)
+    return start[:, None] + torch.arange(s, device=length.device)
 
 
 def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg,
-              cache: Optional[KVCache] = None, quant=False):
+              cache=None, quant=False,
+              chunk_valid: Optional[torch.Tensor] = None):
     """GQA block body (pre-norm residual handled by the caller).
 
-    Returns ``(attn_out, new_cache)``.  With ``cache``, ``x`` is appended
-    at ``cache.length``: a prompt (the cache assumed empty before; attend
-    over the fresh K/V) or one decode token (attend over the cache).
+    Returns ``(attn_out, new_cache)``.  With a dense ``KVCache``, ``x`` is
+    appended at ``cache.length``: a prompt (the cache assumed empty before;
+    attend over the fresh K/V) or one decode token (attend over the
+    cache).  ``chunk_valid`` (``(B,)``, chunked prefill) makes ``x`` one
+    right-padded mid-prompt chunk per row: only its first ``chunk_valid[b]``
+    rows are written and queries attend over the cache.  With a
+    ``PagedKVCache`` the same writes scatter into pages; an S = 1 read goes
+    through the paged-attention kernel when ``cfg.paged_attn_kernel`` is
+    not ``"off"``, else through the gathered view.
     """
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -127,19 +209,76 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg,
         out = flash_attention(q, k, v, positions, positions, causal=True,
                               kv_chunk=cfg.kv_chunk)
         new_cache = None
+    elif isinstance(cache, PagedKVCache):
+        ar = torch.arange(s, dtype=torch.int32, device=x.device)
+        pos = cache.length[:, None] + ar[None]
+        if chunk_valid is not None:
+            keep = ar[None] < chunk_valid[:, None]
+            adv = chunk_valid
+        else:
+            keep = torch.ones((b, s), dtype=torch.bool, device=x.device)
+            adv = s
+        _paged_write(cache.k, cache.page_table, k, pos, keep)
+        _paged_write(cache.v, cache.page_table, v, pos, keep)
+        new_len = cache.length + adv
+        if s == 1 and getattr(cfg, "paged_attn_kernel", "off") != "off":
+            from repro_torch.kernels.paged_attention.ops import \
+                paged_decode_attention
+            out = paged_decode_attention(
+                q, cache.k, cache.v, cache.page_table, new_len,
+                splits=getattr(cfg, "paged_attn_splits", 1))
+        else:
+            kg = _paged_gather(cache.k, cache.page_table)
+            vg = _paged_gather(cache.v, cache.page_table)
+            kv_pos = torch.arange(kg.shape[1], dtype=torch.int32,
+                                  device=x.device).expand(b, -1)
+            attend = _decode_attention if s == 1 else _chunk_attention
+            out = attend(q, kg, vg, positions, kv_pos, new_len)
+        new_cache = PagedKVCache(k=cache.k, v=cache.v,
+                                 page_table=cache.page_table,
+                                 length=new_len)
+    elif chunk_valid is not None:
+        # write only the real slab rows (pad rows write the cache's own
+        # bytes back), then attend over the cache
+        s_max = cache.k.shape[1]
+        length = cache.length
+        if not torch.is_tensor(length):
+            length = torch.full((b,), length, dtype=torch.int32,
+                                device=x.device)
+        rows = _slab_rows(length, s, s_max)
+        bi = torch.arange(b, device=x.device)[:, None]
+        keep = (torch.arange(s, device=x.device)[None]
+                < chunk_valid[:, None])[..., None, None]
+        for c, n in ((cache.k, k), (cache.v, v)):
+            c[bi, rows] = torch.where(keep, n.to(c.dtype), c[bi, rows])
+        new_len = length + chunk_valid
+        kv_pos = torch.arange(s_max, dtype=torch.int32,
+                              device=x.device).expand(b, -1)
+        out = _chunk_attention(q, cache.k, cache.v, positions, kv_pos,
+                               new_len)
+        new_cache = KVCache(k=cache.k, v=cache.v, length=new_len)
     else:
+        s_max = cache.k.shape[1]
         idx = cache.length
-        if idx + s > cache.k.shape[1]:
-            raise ValueError(f"cache of {cache.k.shape[1]} rows cannot take "
-                             f"{s} tokens at {idx}")
-        cache.k[:, idx:idx + s] = k.to(cache.k.dtype)
-        cache.v[:, idx:idx + s] = v.to(cache.v.dtype)
+        if torch.is_tensor(idx) and idx.dim() == 1:
+            # per-slot (B,) lengths: each row appends at its own offset
+            rows = _slab_rows(idx, s, s_max)
+            bi = torch.arange(b, device=x.device)[:, None]
+            cache.k[bi, rows] = k.to(cache.k.dtype)
+            cache.v[bi, rows] = v.to(cache.v.dtype)
+            valid = idx + s
+        else:
+            if idx + s > s_max:
+                raise ValueError(f"cache of {s_max} rows cannot take {s} "
+                                 f"tokens at {idx}")
+            cache.k[:, idx:idx + s] = k.to(cache.k.dtype)
+            cache.v[:, idx:idx + s] = v.to(cache.v.dtype)
+            valid = torch.full((b,), idx + s, dtype=torch.int32,
+                               device=x.device)
         new_len = idx + s
         if s == 1:
-            kv_pos = torch.arange(cache.k.shape[1], dtype=torch.int32,
+            kv_pos = torch.arange(s_max, dtype=torch.int32,
                                   device=x.device).expand(b, -1)
-            valid = torch.full((b,), new_len, dtype=torch.int32,
-                               device=x.device)
             out = flash_attention(q, cache.k, cache.v, positions, kv_pos,
                                   causal=True, kv_chunk=cfg.kv_chunk,
                                   kv_valid_len=valid)

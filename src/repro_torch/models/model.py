@@ -5,7 +5,8 @@ Parameters keep the reference's layout: one block dict whose leaves are
 stacked over the ``R`` repeats (leading dim), weights ``(K, N)``.  Where
 the reference scans over repeats, :func:`forward` runs a Python loop over
 layer views of the stacked leaves.  Caches are ``(R, B, max_len, G, D)``
-per K/V and are updated in place.
+per K/V and are updated in place; the paged slot pool
+(:func:`init_paged_pool`) is ``(R, n_pages, page_len, G, D)`` per K/V.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.shiftadd import QuantizedLinearParams, as_quant_ctx
-from repro_torch.models.attention import KVCache, attention
+from repro_torch.models.attention import KVCache, PagedKVCache, attention
 from repro_torch.models.layers import rms_norm, swiglu
 
 Params = Dict[str, Any]
@@ -27,8 +28,13 @@ Params = Dict[str, Any]
 @dataclass(frozen=True)
 class ModelConfig:
     """The dense-decoder fields of the reference's ``ModelConfig``, with
-    torch dtypes (the MoE, SSM, frontend and paged-pool fields belong to
-    later slices of the port)."""
+    torch dtypes (the MoE, SSM, frontend and quantized-pool fields belong
+    to later slices of the port).
+
+    ``paged_attn_kernel``: ``"off"`` reads the paged pool through the
+    dense gather; ``"pallas"`` (the reference's name) through the CUDA
+    paged-attention kernel with ``paged_attn_splits`` split-KV partials.
+    Only the paged decode path reads them."""
 
     name: str
     d_model: int
@@ -45,6 +51,8 @@ class ModelConfig:
     dtype: Any = torch.bfloat16
     cache_dtype: Any = None           # None -> io dtype
     kv_chunk: int = 1024
+    paged_attn_kernel: str = "off"    # off | pallas
+    paged_attn_splits: int = 1
 
     @property
     def repeats(self) -> int:
@@ -106,15 +114,41 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-                device=None) -> Params:
-    """Stacked (over repeats) K/V caches, zero-filled, ``length`` 0."""
-    _check_dense(cfg)
+                device=None, per_slot: bool = False) -> Params:
+    """Stacked (over repeats) K/V caches, zero-filled.  ``length`` is the
+    int 0, or with ``per_slot=True`` a ``(batch,)`` int32 tensor, one valid
+    length per row (the continuous-batching slot pool)."""
     dev = resolve_device(device)
+    length = (torch.zeros((batch,), dtype=torch.int32, device=dev)
+              if per_slot else 0)
+    return _kv_caches(cfg, (batch, max_len), dtype, dev, length)
+
+
+def init_paged_pool(cfg: ModelConfig, batch: int, max_len: int,
+                    n_pages: int, page_len: int, dtype=None,
+                    device=None) -> Params:
+    """Paged slot-pool caches: attention K/V in a shared page pool
+    ``(R, n_pages, page_len, G, D)`` indexed through host-built per-slot
+    page tables (page 0 is the trash page, ``serving.kvpool``); per-slot
+    ``(batch,)`` lengths.  ``max_len`` must be a multiple of ``page_len``
+    so a slot's gathered view has the dense slab's shape."""
+    if max_len % page_len:
+        raise ValueError(f"max_len={max_len} must be a multiple of "
+                         f"page_len={page_len}")
+    dev = resolve_device(device)
+    return _kv_caches(cfg, (n_pages, page_len), dtype, dev,
+                      torch.zeros((batch,), dtype=torch.int32, device=dev))
+
+
+def _kv_caches(cfg: ModelConfig, rows: Tuple[int, int], dtype,
+               dev: torch.device, length) -> Params:
+    """Zero K/V leaves ``(R, *rows, G, D)`` for the one attention period."""
+    _check_dense(cfg)
     dtype = dtype or cfg.cache_dtype or cfg.dtype
-    shape = (cfg.repeats, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.repeats, *rows, cfg.n_kv_heads, cfg.head_dim)
     return {"layers": ({"k": torch.zeros(shape, dtype=dtype, device=dev),
                         "v": torch.zeros(shape, dtype=dtype, device=dev)},),
-            "length": 0}
+            "length": length}
 
 
 # ---------------------------------------------------------------------------
@@ -131,9 +165,11 @@ def _layer(tree, r: int):
     return tree[r]
 
 
-def _apply_block(cfg: ModelConfig, p: Params, x, positions, cache, quant):
+def _apply_block(cfg: ModelConfig, p: Params, x, positions, cache, quant,
+                 chunk_valid=None):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    out, new_kv = attention(p, h, positions, cfg, cache=cache, quant=quant)
+    out, new_kv = attention(p, h, positions, cfg, cache=cache, quant=quant,
+                            chunk_valid=chunk_valid)
     x = x + out
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + swiglu(p["mlp"], h2, quant=quant), new_kv
@@ -141,9 +177,24 @@ def _apply_block(cfg: ModelConfig, p: Params, x, positions, cache, quant):
 
 def forward(cfg: ModelConfig, params: Params, *, tokens: torch.Tensor,
             caches: Optional[Params] = None, quant=False,
-            return_stats: bool = False):
+            return_stats: bool = False,
+            valid_len: Optional[torch.Tensor] = None,
+            chunk_valid: Optional[torch.Tensor] = None,
+            page_table: Optional[torch.Tensor] = None):
     """Returns ``(logits, new_caches)``; ``caches`` enables prefill/decode
     (the cache tensors are written in place).
+
+    ``caches["length"]`` is an int (whole batch) or a ``(B,)`` int32
+    tensor (per-slot, continuous batching): positions, writes and masks
+    follow each row's own length.  ``valid_len`` (``(B,)``, bucketed
+    prefill) marks right-padding; attention needs no mask for it (pads sit
+    causally after every real token), so the dense decoder only checks it
+    (the reference masks SSM state with it).  ``chunk_valid`` (``(B,)``,
+    chunked prefill) makes ``tokens`` one right-padded mid-prompt chunk per
+    row: only real rows are written, queries attend over the cache, and
+    each row's length advances by its ``chunk_valid`` (0 leaves the row's
+    cache as it was).  ``page_table`` (``(B, n_blocks)`` int32) switches
+    the attention caches to the paged pool of :func:`init_paged_pool`.
 
     ``quant`` (bool | QuantCtx) routes the 7 projections of every layer
     through the QeiHaN path.  With ``return_stats=True`` a third element
@@ -153,12 +204,21 @@ def forward(cfg: ModelConfig, params: Params, *, tokens: torch.Tensor,
     the float path.
     """
     _check_dense(cfg)
+    if valid_len is not None and chunk_valid is not None:
+        raise ValueError("pass either valid_len (bucketed prefill) or "
+                         "chunk_valid (chunked prefill), not both")
+    if chunk_valid is not None and caches is None:
+        raise ValueError("chunk_valid requires caches: a chunk appends to "
+                         "resident earlier chunks")
     ctx = as_quant_ctx(quant)
     x = params["embed"][tokens]
     b, s, _ = x.shape
     base = caches["length"] if caches is not None else 0
-    positions = (base + torch.arange(s, dtype=torch.int32, device=x.device)
-                 ).expand(b, s)
+    ar = torch.arange(s, dtype=torch.int32, device=x.device)
+    if torch.is_tensor(base) and base.dim() == 1:      # per-slot lengths
+        positions = base[:, None] + ar[None]
+    else:
+        positions = (base + ar).expand(b, s)
     block = params["blocks"][0]
     layer_cache = caches["layers"][0] if caches is not None else None
     traffic = []
@@ -167,10 +227,16 @@ def forward(cfg: ModelConfig, params: Params, *, tokens: torch.Tensor,
         # per-period scan body; its per-layer sums stack over repeats
         bctx = None if ctx is None else dataclasses.replace(
             ctx, collect=[] if return_stats else None)
-        kv = None if caches is None else KVCache(
-            k=layer_cache["k"][r], v=layer_cache["v"][r],
-            length=caches["length"])
-        x, _ = _apply_block(cfg, _layer(block, r), x, positions, kv, bctx)
+        if caches is None:
+            kv = None
+        elif page_table is not None:
+            kv = PagedKVCache(k=layer_cache["k"][r], v=layer_cache["v"][r],
+                              page_table=page_table, length=base)
+        else:
+            kv = KVCache(k=layer_cache["k"][r], v=layer_cache["v"][r],
+                         length=base)
+        x, _ = _apply_block(cfg, _layer(block, r), x, positions, kv, bctx,
+                            chunk_valid=chunk_valid)
         if return_stats:
             coll = bctx.collect if bctx is not None else []
             zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -178,7 +244,9 @@ def forward(cfg: ModelConfig, params: Params, *, tokens: torch.Tensor,
                             for j in range(4)])
     new_caches = None
     if caches is not None:
-        new_caches = {"layers": caches["layers"], "length": base + s}
+        new_caches = {"layers": caches["layers"],
+                      "length": base + (s if chunk_valid is None
+                                        else chunk_valid)}
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]

@@ -1,1 +1,24 @@
-"""One-shot serving: prefill + greedy decode (mirrors ``src/repro/serving``)."""
+"""Serving: one-shot generation, the continuous-batching slot scheduler
+over a dense or paged KV pool, and its config (mirrors
+``src/repro/serving``)."""
+
+from repro_torch.serving.config import SCHEMA_VERSION, ServeConfig
+from repro_torch.serving.engine import (greedy_generate, make_decode_loop,
+                                        make_prefill_step, make_serve_step,
+                                        make_slot_prefill,
+                                        make_slot_prefill_chunk,
+                                        make_slot_serve_step,
+                                        reference_generate)
+from repro_torch.serving.kvpool import (PagePool, PrefixHit, RadixCache,
+                                        blocks_for_tokens)
+from repro_torch.serving.scheduler import (Request, RequestResult,
+                                           ServeScheduler, bucket_for,
+                                           round_pool_len)
+
+__all__ = ["SCHEMA_VERSION", "ServeConfig", "greedy_generate",
+           "make_decode_loop", "make_prefill_step", "make_serve_step",
+           "make_slot_prefill", "make_slot_prefill_chunk",
+           "make_slot_serve_step", "reference_generate", "PagePool",
+           "PrefixHit", "RadixCache", "blocks_for_tokens", "Request",
+           "RequestResult", "ServeScheduler", "bucket_for",
+           "round_pool_len"]

@@ -1,6 +1,7 @@
-"""Serving layer: prefill and single-token decode steps, and the
-autoregressive generation loop (port of the one-shot path of
-``src/repro/serving/engine.py``).
+"""Serving layer: prefill and single-token decode steps, the
+autoregressive generation loop, and the slot-pool steps of continuous
+batching (port of ``src/repro/serving/engine.py`` without its mesh
+plumbing and SSM-state masking).
 
 The reference compiles prefill plus every decode step into one XLA
 program (``lax.scan``, or ``lax.while_loop`` with ``eos_id``); here the
@@ -13,6 +14,13 @@ that does run that last forward, as the reference does.
 Quantized serving (``quant=True``) sends every projection of prefill and
 decode through the two CUDA kernels (the reference's prefill uses its
 plain ``"xla"`` form; both are exact, so tokens do not depend on it).
+
+The slot-pool steps (:func:`make_slot_serve_step`, :func:`make_slot_prefill`,
+:func:`make_slot_prefill_chunk`) are the device programs of
+``serving/scheduler.py``: they take per-slot ``(B,)`` lengths and,
+``paged=True``, a page table; the reference jits each, here each is one
+eager call.  ``quant`` may be the reference's backend names (``"pallas"``,
+``"xla"``): both select the CUDA kernels.
 """
 
 from __future__ import annotations
@@ -25,12 +33,21 @@ from repro_torch import resolve_device
 from repro_torch.core.shiftadd import QuantCtx, as_quant_ctx
 from repro_torch.models.model import ModelConfig, forward, init_caches
 
-QuantFlag = Union[bool, QuantCtx]
+QuantFlag = Union[bool, str, QuantCtx]
+
+
+def _quant_ctx(quant: QuantFlag):
+    """bool | backend name | QuantCtx -> QuantCtx or None.  A backend name
+    (the reference's ``"pallas"`` / ``"xla"``) means quantized: the port
+    has one quantized path, its two CUDA kernels."""
+    if isinstance(quant, str):
+        return as_quant_ctx(True)
+    return as_quant_ctx(quant)
 
 
 def make_prefill_step(cfg: ModelConfig, quant: QuantFlag = False):
     """(params, batch, caches) -> (last-token logits, caches)."""
-    ctx = as_quant_ctx(quant)
+    ctx = _quant_ctx(quant)
 
     def prefill_step(params, batch, caches):
         logits, caches = forward(cfg, params, tokens=batch["tokens"],
@@ -43,7 +60,7 @@ def make_serve_step(cfg: ModelConfig, quant: QuantFlag = False,
                     with_stats: bool = False):
     """(params, caches, token (B, 1)) -> (logits, caches[, stats]): one new
     token against a pre-filled cache."""
-    ctx = as_quant_ctx(quant)
+    ctx = _quant_ctx(quant)
 
     def serve_step(params, caches, token):
         out = forward(cfg, params, tokens=token, caches=caches, quant=ctx,
@@ -168,3 +185,107 @@ def reference_generate(cfg: ModelConfig, params, prompt: torch.Tensor,
         toks.append(cur)
         logits, caches = step(params, caches, cur[:, None])
     return torch.stack(toks, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# slot-pool steps (continuous batching)
+# ---------------------------------------------------------------------------
+
+def make_slot_serve_step(cfg: ModelConfig, quant: QuantFlag = False,
+                         with_stats: bool = False, *, paged: bool = False):
+    """``(params, caches, tokens (B, 1), active (B,)[, page_table]) ->
+    (logits, caches[, stats])``: one decode step of every slot.
+
+    Every row computes; ``active`` masks the bookkeeping: an inactive
+    slot's ``length`` does not advance (its junk K/V row lands at the
+    frozen length, where the next real write overwrites it).
+    ``caches["length"]`` is the per-slot ``(B,)`` form.  ``paged=True``
+    takes a ``page_table (B, n_blocks)`` and page-pool caches
+    (``init_paged_pool``); with ``cfg.paged_attn_kernel != "off"`` the read
+    walks the table in the paged-attention kernel.  With
+    ``with_stats=True`` the stats are the batch-aggregate plane traffic of
+    the step."""
+    ctx = _quant_ctx(quant)
+
+    def slot_step(params, caches, tokens, active, page_table=None):
+        if paged and page_table is None:
+            raise ValueError("a paged slot step needs a page_table")
+        out = forward(cfg, params, tokens=tokens, caches=caches, quant=ctx,
+                      return_stats=with_stats,
+                      page_table=page_table if paged else None)
+        if with_stats:
+            logits, new_caches, stats = out
+        else:
+            logits, new_caches = out
+        new_caches = {"layers": new_caches["layers"],
+                      "length": torch.where(active, new_caches["length"],
+                                            caches["length"])}
+        if with_stats:
+            return logits[:, -1], new_caches, stats
+        return logits[:, -1], new_caches
+    return slot_step
+
+
+def _last_real(logits: torch.Tensor, n_real: torch.Tensor) -> torch.Tensor:
+    """``logits (B, S, V)`` at each row's position ``n_real - 1`` (0 for
+    rows with none)."""
+    b, _, v = logits.shape
+    idx = torch.clamp(n_real.long() - 1, min=0)[:, None, None].expand(b, 1, v)
+    return torch.gather(logits, 1, idx)[:, 0]
+
+
+def make_slot_prefill(cfg: ModelConfig, quant: QuantFlag = False):
+    """``(params, prompt (B, bucket), true_len (B,), caches) -> (last-real
+    logits (B, V), caches)``: bucketed prefill for slot admission.  The
+    prompt is right-padded to its bucket; pads sit causally after every
+    real token, and their junk K/V rows lie past ``length``.  The cache's
+    ``length`` becomes the per-row true length."""
+    ctx = _quant_ctx(quant)
+
+    def prefill(params, prompt, true_len, caches):
+        logits, caches = forward(cfg, params, tokens=prompt, caches=caches,
+                                 quant=ctx, valid_len=true_len)
+        caches = {"layers": caches["layers"], "length": true_len}
+        return _last_real(logits, true_len), caches
+    return prefill
+
+
+def make_slot_prefill_chunk(cfg: ModelConfig, quant: QuantFlag = False,
+                            with_stats: bool = False, *,
+                            paged: bool = False):
+    """``(params, pool, pool_logits, tokens (B, chunk_len), chunk_valid
+    (B,), fresh (B,), finishing (B,)[, page_table]) -> (logits (B, V),
+    pool[, stats])``: one prompt chunk per prefilling slot, written
+    straight into the slot pool.
+
+    Each prefilling row feeds its next ``chunk_valid[b]`` prompt tokens
+    (right-padded to the fixed slab) at its current ``length``; decoding
+    or free rows ride along with ``chunk_valid == 0`` and keep their cache.
+    ``fresh`` rows ingest their first chunk: their length restarts at 0.
+    ``finishing`` rows hold the prompt's last token: their last-real
+    logits replace their row of ``pool_logits``.  ``paged=True`` takes a
+    ``page_table``; a prefix-hit admission enters with ``fresh`` False and
+    its length pre-set to the hit, so the chunk ingests only the suffix.
+    """
+    ctx = _quant_ctx(quant)
+
+    def chunk_step(params, pool, pool_logits, tokens, chunk_valid, fresh,
+                   finishing, page_table=None):
+        if paged and page_table is None:
+            raise ValueError("a paged chunk step needs a page_table")
+        caches = {"layers": pool["layers"],
+                  "length": torch.where(fresh, 0, pool["length"])}
+        out = forward(cfg, params, tokens=tokens, caches=caches, quant=ctx,
+                      chunk_valid=chunk_valid, return_stats=with_stats,
+                      page_table=page_table if paged else None)
+        if with_stats:
+            logits, new_caches, stats = out
+        else:
+            logits, new_caches = out
+        last = _last_real(logits, chunk_valid)
+        new_logits = torch.where(finishing[:, None],
+                                 last.to(pool_logits.dtype), pool_logits)
+        if with_stats:
+            return new_logits, new_caches, stats
+        return new_logits, new_caches
+    return chunk_step

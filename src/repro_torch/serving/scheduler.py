@@ -1,0 +1,661 @@
+"""Continuous-batching serve scheduler over a persistent slot pool (port of
+``src/repro/serving/scheduler.py`` for the dense attention decoder on one
+card).
+
+The one-shot engine (``serving/engine.py``) drains its whole batch before
+the next one starts.  This scheduler keeps the decode batch full under
+sustained load — the bandwidth-bound regime in which QeiHaN's plane
+skipping pays:
+
+* **Slot pool** — one persistent allocation of ``max_slots`` cache rows
+  (dense ``(max_len, ...)`` slabs, or pages of a shared pool), reset by
+  overwriting, never re-allocated.
+* **Bucketed prefill** — a prompt is right-padded to the smallest bucket
+  that holds it, prefilled alone, and written into its slot.
+* **Chunked prefill** (``chunked="auto"|"always"``) — a prompt is fed
+  ``chunk_len`` tokens per tick straight into the pool, in the same tick
+  as every other slot's decode steps.
+* **Tick** — every decoding slot steps ``tick_steps`` greedy tokens; host
+  logic between ticks retires finished requests and refills their slots.
+* **Paged KV pool** (``paged=True``) — attention K/V in a shared pool of
+  ``page_len``-token pages behind host page tables (``serving/kvpool.py``).
+* **Radix prefix cache** (``prefix_cache=True``) — retired prompts donate
+  their whole pages to a radix tree; a new request aliases its longest
+  cached prefix (shared pages, the partial page copied on write) and
+  ingests only its suffix.
+* **Paged-attention kernel** (``attn_kernel="pallas"``) — decode reads
+  walk the page tables in the CUDA kernel ``kernels/paged_attention``
+  (on CPU tensors its plain version) instead of gathering each slot's
+  pages into a dense view.
+
+Where the reference compiles a tick into one ``lax.scan``, the port runs a
+Python loop of ``tick_steps`` device steps with no host synchronisation
+inside; tokens and per-step traffic fractions come to the host once per
+tick.  Host state (slots, page tables, the queue) is numpy, as in the
+reference.  Not ported: the deprecated keyword-argument constructor,
+``compile_stats`` / ``audit_programs`` (JAX compile concepts), ``mesh=`` /
+``mesh_spec``, ``kv_quant`` (the log2-quantized page pool) and SSM state
+snapshots; ``generate_cache_size`` is accepted and has no effect (the port
+compiles no programs).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Deque, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models.model import (ModelConfig, init_caches,
+                                      init_paged_pool)
+from repro_torch.serving import engine
+from repro_torch.serving.config import ServeConfig
+from repro_torch.serving.kvpool import (TRASH_PAGE, PagePool, RadixCache,
+                                        blocks_for_tokens)
+
+
+def bucket_for(length: int, buckets: Sequence[int]) -> int:
+    """Smallest configured bucket that holds ``length`` real tokens."""
+    for b in sorted(buckets):
+        if length <= b:
+            return b
+    raise ValueError(f"prompt length {length} exceeds the largest prefill "
+                     f"bucket {max(buckets)}")
+
+
+def round_pool_len(base: int, chunk_len: int) -> int:
+    """Smallest multiple of ``chunk_len`` >= ``base`` — the ``max_len`` a
+    chunked :class:`ServeScheduler` accepts."""
+    return -(-int(base) // int(chunk_len)) * int(chunk_len)
+
+
+@dataclasses.dataclass(frozen=True)
+class Request:
+    rid: int
+    prompt: np.ndarray                  # (L,) int32 token ids
+    max_new: int
+    eos_id: Optional[int] = None
+    submit_time: float = float("nan")   # time.perf_counter() at submit()
+
+
+@dataclasses.dataclass
+class RequestResult:
+    rid: int
+    prompt_len: int
+    tokens: List[int]
+    finish_reason: str                  # "eos" | "length" | "rejected"
+    admitted_tick: int                  # -1 for rejected requests
+    finished_tick: int
+    # per-request mean of the per-step batch-aggregate traffic fractions
+    # over the steps this request was active (nan without stats)
+    plane_traffic_fraction: float = float("nan")
+    element_traffic_fraction: float = float("nan")
+    error: Optional[str] = None         # why a "rejected" request never ran
+    # wall-clock marks on one time.perf_counter() clock: TTFT =
+    # first_token_time - submit_time, e2e = finish_time - submit_time
+    submit_time: float = float("nan")
+    first_token_time: float = float("nan")
+    finish_time: float = float("nan")
+
+
+@dataclasses.dataclass
+class _Slot:
+    req: Request
+    admitted_tick: int
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    finish_reason: str = ""
+    frac_sums: List[float] = dataclasses.field(
+        default_factory=lambda: [0.0, 0.0])
+    frac_steps: int = 0
+    # chunked admissions are "prefill" until their last chunk lands
+    phase: str = "decode"               # "prefill" | "decode"
+    prefill_pos: int = 0                # prompt tokens ingested so far
+    first_token_time: float = float("nan")
+    # paged mode: every page this slot holds a reference on, and the
+    # prefix-hit length it was admitted with
+    pages: List[int] = dataclasses.field(default_factory=list)
+    hit_len: int = 0
+
+
+class ServeScheduler:
+    """Continuous-batching scheduler: admit -> tick -> retire -> re-fill.
+
+    Greedy decoding only.  Usage::
+
+        sc = ServeConfig(max_slots=8, max_len=256, paged=True,
+                         prefix_cache=True, attn_kernel="pallas")
+        sched = ServeScheduler(cfg, params, sc)       # params on the card
+        for p in prompts:
+            sched.submit(p, max_new=32, eos_id=2)
+        results = sched.run()          # List[RequestResult], rid order
+
+    ``device=None`` means the card (and raises without one); ``params``
+    must live on the same device type.  Every knob is a
+    :class:`ServeConfig` field with the reference's meaning.
+    """
+
+    def __init__(self, cfg: ModelConfig, params,
+                 config: Optional[ServeConfig] = None, *, device=None):
+        if config is None:
+            config = ServeConfig()
+        if not isinstance(config, ServeConfig):
+            raise TypeError(f"ServeScheduler: config must be a ServeConfig,"
+                            f" got {type(config).__name__}")
+        if config.mesh_spec is not None:
+            raise NotImplementedError(
+                f"mesh_spec={config.mesh_spec!r}: the port serves one card; "
+                f"multi-device serving is not ported yet")
+        if config.kv_quant:
+            raise NotImplementedError(
+                "kv_quant=True: the log2-quantized page pool is not ported "
+                "yet")
+        dev = resolve_device(device)
+        if params["embed"].device.type != dev.type:
+            raise ValueError(f"params live on {params['embed'].device}, "
+                             f"not on {dev}")
+        self.serve_config = config
+        self.device = dev
+        if config.attn_kernel != "off":
+            # the flag rides the model config: every decode step below
+            # dispatches through models.attention
+            cfg = cfg.replace(paged_attn_kernel=config.attn_kernel,
+                              paged_attn_splits=config.attn_splits)
+        self.cfg = cfg
+        self.params = params
+        self.max_slots = max_slots = config.max_slots
+        self.max_len = max_len = config.max_len
+        self.buckets = config.buckets
+        self.quant = config.quant
+        self.with_stats = with_stats = config.with_stats
+        self.tick_steps = config.tick_steps
+        self.oversize = config.oversize
+        self.chunked = config.chunked
+        self.chunk_len = config.chunk_len
+        self.paged = paged = config.paged
+        self.page_len = config.page_len if paged else 0
+        self.prefix_cache = config.prefix_cache
+        self.min_prefix_hit = config.min_prefix_hit
+        self.attn_kernel = config.attn_kernel
+        self.attn_splits = config.attn_splits
+        self._needs_chunk_programs = config.needs_chunk_programs
+
+        # --- persistent pool (allocated exactly once) ----------------------
+        if paged:
+            self.max_blocks = config.max_blocks
+            self.n_pages = config.resolved_n_pages()
+            self._pool = init_paged_pool(cfg, max_slots, max_len,
+                                         self.n_pages, self.page_len,
+                                         dtype=cfg.dtype, device=dev)
+            self._pages = PagePool(self.n_pages, self.page_len)
+            # host-side page tables, one row per slot; entry 0 = trash page
+            self._table = np.zeros((max_slots, self.max_blocks), np.int32)
+            self._radix = (RadixCache(self._pages,
+                                      snapshot_limit=config.snapshot_limit)
+                           if self.prefix_cache else None)
+            self.prefix_stats = {"prompt_tokens": 0, "cached_tokens": 0,
+                                 "prefill_tokens": 0, "pages_held": 0,
+                                 "admitted": 0}
+        else:
+            self._pool = init_caches(cfg, max_slots, max_len,
+                                     dtype=cfg.dtype, device=dev,
+                                     per_slot=True)
+            self._pages = self._radix = None
+        self._logits = torch.zeros((max_slots, cfg.vocab_size),
+                                   dtype=cfg.dtype, device=dev)
+        self._active = np.zeros((max_slots,), bool)
+        self._slots: List[Optional[_Slot]] = [None] * max_slots
+
+        self._queue: Deque[Request] = deque()
+        self._results: Dict[int, RequestResult] = {}
+        self._next_rid = 0
+        self._tick_count = 0
+
+        quant = config.quant
+        self._slot_prefill = engine.make_slot_prefill(cfg, quant)
+        self._step = engine.make_slot_serve_step(cfg, quant,
+                                                 with_stats=with_stats,
+                                                 paged=paged)
+        self._chunk_step = (engine.make_slot_prefill_chunk(
+            cfg, quant, with_stats=with_stats, paged=paged)
+            if self._needs_chunk_programs else None)
+
+    # ------------------------------------------------------- device steps
+
+    def _dev(self, a, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    def _prefill(self, prompt: np.ndarray, true_len: int):
+        """Bucketed prefill of one padded prompt into a fresh 1-row cache."""
+        caches = init_caches(self.cfg, 1, self.max_len, dtype=self.cfg.dtype,
+                             device=self.device)
+        return self._slot_prefill(
+            self.params, self._dev(prompt, torch.int32),
+            self._dev([true_len], torch.int32), caches)
+
+    def _write(self, slot_cache, slot_logits, i: int, true_len: int) -> None:
+        """Write a freshly prefilled 1-row cache and its logits into slot
+        ``i``.  Paged: positions ``< true_len`` land at (``table[i, p //
+        page_len]``, ``p % page_len``), the rest at the trash page."""
+        layers = zip(self._pool["layers"], slot_cache["layers"])
+        if self.paged:
+            pl = self.page_len
+            pos = torch.arange(self.max_len, device=self.device)
+            valid = pos < true_len
+            row = self._dev(self._table[i]).long()
+            page = torch.where(valid, row[pos // pl], TRASH_PAGE)
+            off = torch.where(valid, pos % pl, 0)
+            for c_pool, c_slot in layers:
+                for k in ("k", "v"):
+                    c_pool[k][:, page, off] = c_slot[k][:, 0].to(
+                        c_pool[k].dtype)
+        else:
+            for c_pool, c_slot in layers:
+                for k in ("k", "v"):
+                    c_pool[k][:, i] = c_slot[k][:, 0].to(c_pool[k].dtype)
+        self._pool["length"][i] = true_len
+        self._logits[i] = slot_logits[0].to(self._logits.dtype)
+
+    def _table_dev(self):
+        return (self._dev(self._table),) if self.paged else ()
+
+    def _decode(self, active: torch.Tensor, pt: tuple):
+        """``tick_steps`` slot-masked greedy steps on the device: returns
+        tokens ``(B, tick_steps)`` and fractions ``(tick_steps, 2)``, both
+        still on the device."""
+        toks, fracs = [], []
+        zero = torch.zeros((2,), dtype=torch.float32, device=self.device)
+        for _ in range(self.tick_steps):
+            tok = torch.argmax(self._logits, dim=-1).to(torch.int32)
+            out = self._step(self.params, self._pool, tok[:, None], active,
+                             *pt)
+            if self.with_stats:
+                self._logits, self._pool, stats = out
+                fracs.append(torch.stack(
+                    [stats["plane_traffic_fraction"],
+                     stats["element_traffic_fraction"]]))
+            else:
+                self._logits, self._pool = out
+                fracs.append(zero)
+            toks.append(tok)
+        return torch.stack(toks, dim=1), torch.stack(fracs)
+
+    def _chunk(self, tokens, valid, fresh, finishing, pt: tuple):
+        out = self._chunk_step(self.params, self._pool, self._logits,
+                               self._dev(tokens, torch.int32),
+                               self._dev(valid, torch.int32),
+                               self._dev(fresh, torch.bool),
+                               self._dev(finishing, torch.bool), *pt)
+        if self.with_stats:
+            self._logits, self._pool, stats = out
+            return torch.stack([stats["plane_traffic_fraction"],
+                                stats["element_traffic_fraction"]])
+        self._logits, self._pool = out
+        return torch.zeros((2,), dtype=torch.float32, device=self.device)
+
+    def _cow(self, src: int, dst: int) -> None:
+        """Copy page ``src`` into page ``dst`` in every layer's K and V."""
+        for c in self._pool["layers"]:
+            for k in ("k", "v"):
+                c[k][:, dst] = c[k][:, src]
+
+    # ------------------------------------------------------------------ API
+
+    def submit(self, prompt, max_new: int, eos_id: Optional[int] = None) -> int:
+        """Queue one request; returns its rid (results come back in rid
+        order from :meth:`run`).
+
+        A prompt over the admission bound (without chunking the largest
+        bucket, with it the slot capacity), or whose prompt + ``max_new``
+        overflows the slot, follows the ``oversize`` policy: ``"reject"``
+        records a ``RequestResult(finish_reason="rejected", error=...)``,
+        ``"truncate"`` keeps the most recent tokens that fit, ``"raise"``
+        raises ``ValueError``.  Empty prompts and ``max_new < 1`` always
+        raise."""
+        now = time.perf_counter()
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError("empty prompt")
+        if max_new < 1:
+            raise ValueError("max_new must be >= 1")
+        if self.chunked == "off":
+            fit = min(self.buckets[-1], self.max_len - max_new)
+        else:
+            fit = self.max_len - max_new
+        if prompt.size > fit:
+            if self.chunked == "off" and prompt.size > self.buckets[-1]:
+                why = (f"prompt length {prompt.size} exceeds the largest "
+                       f"prefill bucket {self.buckets[-1]} (enable chunked "
+                       f"prefill to lift the bucket ceiling)")
+            else:
+                why = (f"prompt ({prompt.size}) + max_new ({max_new}) "
+                       f"exceeds the slot capacity max_len={self.max_len}")
+            if self.oversize == "raise":
+                raise ValueError(why)
+            if self.oversize == "truncate" and fit >= 1:
+                prompt = prompt[-fit:]           # keep the latest context
+            else:
+                rid = self._next_rid
+                self._next_rid += 1
+                self._results[rid] = RequestResult(
+                    rid=rid, prompt_len=int(prompt.size), tokens=[],
+                    finish_reason="rejected", admitted_tick=-1,
+                    finished_tick=self._tick_count, error=why,
+                    submit_time=now, finish_time=now)
+                return rid
+        rid = self._next_rid
+        self._next_rid += 1
+        self._queue.append(Request(rid=rid, prompt=prompt, max_new=max_new,
+                                   eos_id=eos_id, submit_time=now))
+        return rid
+
+    @property
+    def pending(self) -> int:
+        return len(self._queue) + int(self._active.sum())
+
+    def prefix_cache_stats(self) -> Dict[str, float]:
+        """Prefix-cache effectiveness over everything admitted so far:
+        ``hit_rate`` is the fraction of prompt tokens served straight from
+        shared pages (their prefill compute and cache writes skipped)."""
+        if not self.paged:
+            raise ValueError("prefix_cache_stats: not a paged scheduler")
+        total = max(self.prefix_stats["prompt_tokens"], 1)
+        cached = self.prefix_stats["cached_tokens"]
+        out = {
+            "prompt_tokens": float(self.prefix_stats["prompt_tokens"]),
+            "cached_tokens": float(cached),
+            "prefill_tokens": float(self.prefix_stats["prefill_tokens"]),
+            "hit_rate": cached / total,
+            "cache_write_saved_frac": cached / total,
+            "pages_in_use": float(self._pages.in_use),
+            "pages_free": float(self._pages.available),
+        }
+        if self._radix is not None:
+            out["lookups"] = float(self._radix.lookups)
+            out["lookup_hits"] = float(self._radix.hits)
+        return out
+
+    def reset_prefix_stats(self) -> None:
+        """Zero the prefix-cache counters (cached pages stay resident)."""
+        if not self.paged:
+            raise ValueError("reset_prefix_stats: not a paged scheduler")
+        self.prefix_stats = {k: 0 for k in self.prefix_stats}
+        if self._radix is not None:
+            self._radix.lookups = self._radix.hits = 0
+            self._radix.tokens_hit = 0
+
+    def step_tick(self) -> bool:
+        """Admit into every free slot, feed one prompt chunk to every
+        prefilling slot, run ``tick_steps`` decode steps for every decoding
+        slot, then retire finished requests.  Returns False when there is
+        nothing to do.  Paged admission can stall: a request the pool
+        cannot cover (after evicting prefix-cache entries) waits at the
+        queue head while others are in flight, and follows the
+        ``oversize`` policy when none is."""
+        stalled = False
+        for i in range(self.max_slots):
+            if stalled:
+                break
+            while not self._active[i] and self._queue:
+                req = self._queue.popleft()
+                st = self._admit(i, req)
+                if st == "wait":
+                    self._queue.appendleft(req)
+                    stalled = True
+                    break
+        if not self._active.any():
+            return False
+
+        # ---- this tick's chunk slab (chunked admissions only) -------------
+        chunk_rows = [i for i, s in enumerate(self._slots)
+                      if s is not None and s.phase == "prefill"]
+        valid = np.zeros((self.max_slots,), np.int32)
+        finishing = np.zeros((self.max_slots,), bool)
+        if chunk_rows:
+            tokens = np.zeros((self.max_slots, self.chunk_len), np.int32)
+            fresh = np.zeros((self.max_slots,), bool)
+            for i in chunk_rows:
+                s = self._slots[i]
+                take = min(self.chunk_len,
+                           s.req.prompt.size - s.prefill_pos)
+                tokens[i, :take] = s.req.prompt[s.prefill_pos:
+                                                s.prefill_pos + take]
+                valid[i] = take
+                fresh[i] = s.prefill_pos == 0 and s.hit_len == 0
+                finishing[i] = s.prefill_pos + take >= s.req.prompt.size
+        # a slot whose LAST chunk lands this tick decodes in the same tick:
+        # the chunk writes its first-token logits before the decode steps
+        decode_mask = np.array(
+            [s is not None and not s.done
+             and (s.phase == "decode" or bool(finishing[i]))
+             for i, s in enumerate(self._slots)])
+
+        pt = self._table_dev()
+        toks = fracs = cfrac = None
+        if chunk_rows:
+            cfrac = self._chunk(tokens, valid, fresh, finishing, pt)
+        if decode_mask.any():
+            toks, fracs = self._decode(self._dev(decode_mask, torch.bool), pt)
+        # the tick's one host synchronisation
+        toks_h = None if toks is None else toks.cpu().numpy()
+        fracs_h = None if fracs is None else fracs.cpu().numpy()
+        cfrac_h = None if cfrac is None else cfrac.cpu().numpy()
+
+        now = time.perf_counter()
+
+        # ---- chunk-phase bookkeeping --------------------------------------
+        for i in chunk_rows:
+            s = self._slots[i]
+            s.prefill_pos += int(valid[i])
+            if finishing[i]:
+                s.phase = "decode"
+            if self.with_stats:
+                # the chunk forward's batch-aggregate traffic, attributed
+                # to the requests that prefilled this tick
+                s.frac_sums[0] += float(cfrac_h[0])
+                s.frac_sums[1] += float(cfrac_h[1])
+                s.frac_steps += 1
+
+        # ---- decode-phase bookkeeping -------------------------------------
+        if toks_h is not None:
+            for t in range(self.tick_steps):
+                for i, slot in enumerate(self._slots):
+                    if slot is None or slot.done or not decode_mask[i]:
+                        continue
+                    tok = int(toks_h[i, t])
+                    if not slot.tokens:
+                        slot.first_token_time = now
+                    slot.tokens.append(tok)
+                    if self.with_stats:
+                        slot.frac_sums[0] += float(fracs_h[t, 0])
+                        slot.frac_sums[1] += float(fracs_h[t, 1])
+                        slot.frac_steps += 1
+                    if slot.req.eos_id is not None \
+                            and tok == slot.req.eos_id:
+                        slot.done, slot.finish_reason = True, "eos"
+                    elif len(slot.tokens) >= slot.req.max_new:
+                        slot.done, slot.finish_reason = True, "length"
+
+        self._tick_count += 1
+        for i, slot in enumerate(self._slots):
+            if slot is not None and slot.done:
+                self._retire(i)
+        return True
+
+    def run(self, max_ticks: Optional[int] = None) -> List[RequestResult]:
+        """Drive ticks until queue and slots drain (or ``max_ticks``);
+        returns every finished result in rid order."""
+        ticks = 0
+        while self.pending and (max_ticks is None or ticks < max_ticks):
+            if not self.step_tick():
+                break
+            ticks += 1
+        return [self._results[rid] for rid in sorted(self._results)]
+
+    # ------------------------------------------------------------ internals
+
+    def _uses_chunks(self, prompt_len: int) -> bool:
+        """``"always"`` chunks everything; ``"auto"`` only prompts no
+        bucket can hold."""
+        if self.chunked == "always":
+            return True
+        return self.chunked == "auto" and prompt_len > self.buckets[-1]
+
+    def _alloc_pages(self, n: int) -> Optional[List[int]]:
+        """Allocate ``n`` fresh pages, evicting LRU prefix-cache entries
+        if the free list runs short — all or nothing, and eviction only
+        when it can satisfy the request."""
+        got = self._pages.alloc(n)
+        if (got is None and self._radix is not None
+                and self._pages.available + self._radix.evictable_pages()
+                >= n):
+            self._radix.evict(n)
+            got = self._pages.alloc(n)
+        return got
+
+    def _admit(self, slot_idx: int, req: Request) -> str:
+        """Fill ``slot_idx`` with ``req``: ``"ok"`` (admitted), ``"wait"``
+        (paged pool exhausted while others are in flight) or ``"drop"``
+        (rejected with a per-request error result)."""
+        if self.paged:
+            return self._admit_paged(slot_idx, req)
+        if self._uses_chunks(int(req.prompt.size)):
+            self._active[slot_idx] = True
+            self._slots[slot_idx] = _Slot(req=req,
+                                          admitted_tick=self._tick_count,
+                                          phase="prefill")
+            return "ok"
+        self._admit_bucketed(slot_idx, req)
+        return "ok"
+
+    def _admit_bucketed(self, slot_idx: int, req: Request) -> None:
+        """Monolithic bucketed prefill + slot write (dense or paged)."""
+        length = int(req.prompt.size)
+        padded = np.zeros((1, bucket_for(length, self.buckets)), np.int32)
+        padded[0, :length] = req.prompt
+        logits1, cache1 = self._prefill(padded, length)
+        self._write(cache1, logits1, slot_idx, length)
+        self._active[slot_idx] = True
+        self._slots[slot_idx] = _Slot(req=req,
+                                      admitted_tick=self._tick_count)
+
+    def _admit_paged(self, slot_idx: int, req: Request,
+                     retrying: bool = False) -> str:
+        prompt = req.prompt
+        length = int(prompt.size)
+        pl = self.page_len
+        hit = None
+        if self._radix is not None:
+            # cap the hit at length-1: at least one suffix token must run
+            # through prefill to produce the first decode logits
+            hit = self._radix.lookup(prompt, max_hit=length - 1,
+                                     min_hit=self.min_prefix_hit)
+        shared = list(hit.pages) if hit is not None else []
+        # hold every page the hit aliases (shared blocks and the COW
+        # source) BEFORE allocating: allocation may evict radix entries
+        # whose reference is the only thing keeping these pages alive
+        hold = shared + ([hit.cow_src] if hit is not None
+                         and hit.cow_src is not None else [])
+        self._pages.ref(hold)
+        # worst-case tokens the slot writes: prompt + generation + the junk
+        # tail of the tick in which it finishes
+        need_tokens = min(self.max_len,
+                          length + req.max_new + self.tick_steps)
+        n_blocks = blocks_for_tokens(need_tokens, pl)
+        fresh = self._alloc_pages(n_blocks - len(shared))
+        if fresh is None:
+            self._pages.release(hold)
+            if self._active.any():
+                return "wait"
+            why = (f"page pool exhausted: request needs {n_blocks} pages "
+                   f"({need_tokens} tokens @ page_len={pl}), "
+                   f"{self._pages.available} free of "
+                   f"{self._pages.capacity}")
+            if self.oversize == "raise":
+                raise ValueError(why)
+            if self.oversize == "truncate" and not retrying:
+                usable = self._pages.available + (
+                    self._radix.evictable_pages()
+                    if self._radix is not None else 0)
+                fit = min(usable * pl - req.max_new - self.tick_steps,
+                          self.max_len - req.max_new)
+                if fit >= 1:
+                    cut = dataclasses.replace(req, prompt=prompt[-fit:])
+                    return self._admit_paged(slot_idx, cut, retrying=True)
+            now = time.perf_counter()
+            self._results[req.rid] = RequestResult(
+                rid=req.rid, prompt_len=length, tokens=[],
+                finish_reason="rejected", admitted_tick=-1,
+                finished_tick=self._tick_count, error=why,
+                submit_time=req.submit_time, finish_time=now)
+            return "drop"
+        if hit is not None and hit.cow_src is not None:
+            # the partially matching page is copied into the first fresh
+            # page (block len(shared)), which the slot owns exclusively
+            self._cow(hit.cow_src, fresh[0])
+            self._pages.release([hit.cow_src])
+        pages = shared + fresh
+        self._table[slot_idx, :] = TRASH_PAGE
+        self._table[slot_idx, :len(pages)] = pages
+        self.prefix_stats["prompt_tokens"] += length
+        if hit is not None:
+            # the slot resumes at the hit boundary and ingests only the
+            # suffix through the chunk path
+            self._pool["length"][slot_idx] = hit.length
+            slot = _Slot(req=req, admitted_tick=self._tick_count,
+                         phase="prefill", prefill_pos=hit.length,
+                         hit_len=hit.length)
+            self.prefix_stats["cached_tokens"] += hit.length
+            self.prefix_stats["prefill_tokens"] += length - hit.length
+        elif self._uses_chunks(length):
+            slot = _Slot(req=req, admitted_tick=self._tick_count,
+                         phase="prefill")
+            self.prefix_stats["prefill_tokens"] += length
+        else:
+            self._admit_bucketed(slot_idx, req)
+            slot = self._slots[slot_idx]
+            self.prefix_stats["prefill_tokens"] += length
+        slot.pages = pages
+        self.prefix_stats["pages_held"] += len(pages)
+        self.prefix_stats["admitted"] += 1
+        self._active[slot_idx] = True
+        self._slots[slot_idx] = slot
+        return "ok"
+
+    def _free_slot(self, slot_idx: int) -> None:
+        """Release ``slot_idx``: donate the prompt's pages to the prefix
+        cache, drop the slot's page references, clear its table row and
+        active bit."""
+        slot = self._slots[slot_idx]
+        if self.paged:
+            if self._radix is not None:
+                row = self._table[slot_idx]
+                self._radix.insert(slot.req.prompt, lambda bi: int(row[bi]))
+            self._pages.release(slot.pages)
+            self._table[slot_idx, :] = TRASH_PAGE
+        self._active[slot_idx] = False
+        self._slots[slot_idx] = None
+
+    def _retire(self, slot_idx: int) -> None:
+        slot = self._slots[slot_idx]
+        self._free_slot(slot_idx)
+        n = max(slot.frac_steps, 1)
+        self._results[slot.req.rid] = RequestResult(
+            rid=slot.req.rid,
+            prompt_len=int(slot.req.prompt.size),
+            tokens=list(slot.tokens),
+            finish_reason=slot.finish_reason,
+            admitted_tick=slot.admitted_tick,
+            finished_tick=self._tick_count,
+            plane_traffic_fraction=(slot.frac_sums[0] / n
+                                    if self.with_stats else float("nan")),
+            element_traffic_fraction=(slot.frac_sums[1] / n
+                                      if self.with_stats else float("nan")),
+            submit_time=slot.req.submit_time,
+            first_token_time=slot.first_token_time,
+            finish_time=time.perf_counter(),
+        )

@@ -1,4 +1,8 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card:
+K1 (LOG2 quantizer) and K2 (bit-plane GEMM) bit-equal, K3 (paged-attention
+decode) within the reference's tolerances (f32 ``rtol=2e-5, atol=2e-6``;
+bf16 ``atol=2e-2`` on the merged output), with trash-page poison bitwise
+invisible on live rows.
 
 Every test here is marked ``cuda`` and skips on a host without an NVIDIA
 GPU.  The file imports no JAX, so it runs where the card is:
@@ -18,6 +22,7 @@ from repro_torch.core.wquant import quantize_weights
 from repro_torch.kernels.bitplane_matmul import ops as bm_ops
 from repro_torch.kernels.bitplane_matmul.ref import bitplane_matmul_ref
 from repro_torch.kernels.log2quant import ops as l2_ops
+from repro_torch.kernels.paged_attention import ops as pa_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -100,3 +105,91 @@ def test_wrappers_refuse_non_contiguous_cuda_input(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         bm_ops.bitplane_matmul(exp, sign, planes.transpose(1, 2)
                                .contiguous().transpose(1, 2))
+
+
+def _paged_case(page_len, nb, g, r, d, lengths, dtype, poison, seed,
+                device):
+    gen = torch.Generator().manual_seed(seed)
+    b = len(lengths)
+    n_pages = 1 + b * nb
+    k = torch.randn((n_pages, page_len, g, d), generator=gen)
+    v = torch.randn((n_pages, page_len, g, d), generator=gen)
+    k[0] = poison
+    v[0] = poison
+    table = torch.from_numpy(pa_ops.make_page_table(lengths, nb, page_len))
+    q = torch.randn((b, 1, g * r, d), generator=gen)
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    return (q.to(dtype).to(device), k.to(dtype).to(device),
+            v.to(dtype).to(device), table.to(device), lens.to(device))
+
+
+def _lengths(page_len, nb):
+    mx = page_len * nb
+    cand = [0, 1, page_len - 1, page_len, page_len + 1, 2 * page_len, mx]
+    return [n for n in dict.fromkeys(cand) if 0 <= n <= mx]
+
+
+@pytest.mark.parametrize("page_len,nb", [(1, 4), (4, 4), (8, 3), (16, 5)])
+@pytest.mark.parametrize("g,r", [(1, 1), (2, 2), (1, 3), (3, 3)])
+@pytest.mark.parametrize("d", [8, 16, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_matches_plain(cuda, page_len, nb, g, r, d,
+                                              dtype):
+    q, k, v, table, lens = _paged_case(page_len, nb, g, r, d,
+                                       _lengths(page_len, nb), dtype, 1e4,
+                                       page_len + g + r + d, cuda)
+    b, _, h, _ = q.shape
+    live = (lens > 0).cpu()
+    for splits in (1, 2, 3, 4):
+        pt = torch.nn.functional.pad(table, (0, (-nb) % splits))
+        qg = q.reshape(b, g, r, d)
+        before = pa_ops.paged_attention.launches
+        o, m, l = pa_ops.paged_attention(qg, k, v, pt, lens, splits)
+        torch.cuda.synchronize()
+        assert pa_ops.paged_attention.launches == before + 1
+        po, pm, pl = pa_ops.paged_attention_plain(qg, k, v, pt, lens, splits)
+        assert torch.equal(m <= pa_ops.NEG_INF / 2, pm <= pa_ops.NEG_INF / 2)
+        if dtype == torch.float32:
+            for a, e in ((o, po), (m, pm), (l, pl)):
+                torch.testing.assert_close(a, e, rtol=2e-5, atol=2e-6)
+        out = pa_ops.merge_split_softmax(m, l, o, axis=2).cpu()
+        ref = pa_ops.merge_split_softmax(pm, pl, po, axis=2).cpu()
+        assert torch.isfinite(out).all()
+        tol = (dict(rtol=2e-5, atol=2e-6) if dtype == torch.float32
+               else dict(rtol=0.0, atol=2e-2))
+        torch.testing.assert_close(out[live], ref[live], **tol)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_poison_invisible(cuda, splits, dtype):
+    lengths = [0, 1, 3, 4, 5, 16]
+    live = torch.tensor(lengths) > 0
+    outs = []
+    for poison in (0.0, 1e4, -1e4):
+        q, k, v, table, lens = _paged_case(4, 4, 2, 2, 8, lengths, dtype,
+                                           poison, 11, cuda)
+        out = pa_ops.paged_decode_attention(q, k, v, table, lens,
+                                            splits=splits).cpu()
+        assert torch.isfinite(out.float()).all()
+        outs.append(out)
+    for out in outs[1:]:
+        assert torch.equal(out[live], outs[0][live])
+
+
+def test_paged_attention_kernel_splits_bitwise_in_split_zero(cuda):
+    q, k, v, table, lens = _paged_case(4, 4, 2, 2, 8, [4, 7, 8],
+                                       torch.float32, 0.0, 24, cuda)
+    base = pa_ops.paged_decode_attention(q, k, v, table, lens, splits=1)
+    two = pa_ops.paged_decode_attention(q, k, v, table, lens, splits=2)
+    assert torch.equal(base, two)
+
+
+def test_paged_attention_refuses_mixed_dtypes_and_views(cuda):
+    q, k, v, table, lens = _paged_case(4, 4, 1, 1, 8, [3, 5], torch.float32,
+                                       0.0, 0, cuda)
+    qg = q.reshape(2, 1, 1, 8)
+    with pytest.raises(TypeError, match="dtype"):
+        pa_ops.paged_attention(qg.to(torch.bfloat16), k, v, table, lens, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa_ops.paged_attention(qg, k, v, table.t().contiguous().t(), lens, 1)
