@@ -54,7 +54,28 @@ Phases, in order; any failure exits non-zero before the result line:
    step's 30 launches beside its bound (touched K/V pages, q and the
    partials over 3.35 TB/s), the plain version's time and, as context,
    ``_paged_gather`` + ``F.scaled_dot_product_attention`` on the same
-   tables.
+   tables;
+8. K4, the paged-attention decode over the log2-quantized pool, against
+   its plain version on the card: phase 6's geometries and boundary
+   lengths, n_bits {2, 4, 8}, q in f32 and bf16, splits 1..4, within f32
+   ``rtol=2e-5, atol=2e-6``, with random trash-page codes and scales (up
+   to +-127) and a garbage tail ring bitwise invisible on live rows
+   through ``paged_decode_attention_quant``, and no NaN;
+9. the scheduler of phase 7 (model, trace, ``ServeConfig``) with
+   ``kv_quant=True, kv_bits=4``.  In f32 with float projections, at the
+   first 8 of the 30 layers (to keep the script's time), the
+   quantized-gather read and K4: every K4 call within f32 tolerance of
+   the dequantize-and-gather math on the same inputs, and tokens equal
+   unless the two runs wrote a different K/V code.  In bf16 with
+   ``quant=True`` (the slice's main path: K1, K2 and K4 on every decode
+   step; every count is set to 0 just before it and read just after):
+   tok/s, decode-only tok/s, hit rate, launches, the pool bytes per
+   request of the reference bench's byte model; on the tick that touches
+   most pages, K4 against its plain version for all 30 layers, then its
+   time by CUDA-graph replay of the step's 30 launches beside its bound
+   (the full code pages it reads, their scales, q and the partials over
+   3.35 TB/s), the plain version's time and, as context, dequantizing
+   the pool then ``_paged_gather`` + ``F.scaled_dot_product_attention``.
 
 Prints a ``kernels:`` line, the JSON kernel table and, last, the result
 line ``{"ok": true, "device": {...}}``.  It imports nothing of JAX and
@@ -82,6 +103,8 @@ SERVE = dict(max_slots=8, max_len=512, buckets=(16, 32, 64, 128),
              tick_steps=8, chunked="auto", paged=True, page_len=16,
              prefix_cache=True, attn_splits=2)
 SERVE_NEW = 32
+KV_BITS = 4
+F32_KVQ_LAYERS = 8                  # depth of phase 9's f32 comparison
 
 
 def fail(msg: str) -> None:
@@ -164,6 +187,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     dev = torch.device("cuda")
+    t_main = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -198,11 +222,13 @@ def main() -> None:
         l2_ops._lib()
         bm_ops._lib()
         pa_ops._lib()
+        pa_ops._lib_quant()
     except RuntimeError as e:
         fail(f"kernel build failed: {e}")
     print(f"phase 1: built {[p.name for p in _build.sources()]} in "
           f"{time.perf_counter() - t0:.1f} s")
-    for stem in ("log2quant", "bitplane_matmul", "paged_attention"):
+    for stem in ("log2quant", "bitplane_matmul", "paged_attention",
+                 "paged_attention_quant"):
         for line in _build.build_log(stem).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {stem}: {line.strip()}")
@@ -479,6 +505,15 @@ def main() -> None:
     # -- phase 7: the continuous-batching scheduler at full width -----------
     k3 = phase7(torch, dev, card, pa_ops, l2_ops, bm_ops)
     k3_err = max(k3_err, k3["max_abs_err"])
+    print(f"  (phases 1-7 done at {time.perf_counter() - t_main:.0f} s)")
+
+    # -- phase 8: K4 against its plain version ------------------------------
+    k4_err = phase8(torch, dev, pa_ops)
+
+    # -- phase 9: the scheduler with the quantized pool at full width -------
+    k4 = phase9(torch, dev, card, pa_ops, l2_ops, bm_ops)
+    k4_err = max(k4_err, k4["max_abs_err"])
+    print(f"  (phases 8-9 done at {time.perf_counter() - t_main:.0f} s)")
 
     table = []
     for kname, src, replaces, err in (
@@ -508,7 +543,17 @@ def main() -> None:
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
         "scope": k3["scope"], "eager_ms": k3["eager_ms"]})
-    print('kernels: ["log2quant", "bitplane_matmul", "paged_attention"]')
+    table.append({
+        "name": "paged_attention_quant", "route": "cuda",
+        "source": "src/repro_torch/kernels/paged_attention/csrc/"
+                  "paged_attention_quant.cu",
+        "replaces": "src/repro/kernels/paged_attention/kernel.py:315",
+        "launches": k4["launches"], "max_abs_err": k4_err, "ms": k4["ms"],
+        "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+        "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],
+        "scope": k4["scope"], "eager_ms": k4["eager_ms"]})
+    print('kernels: ["log2quant", "bitplane_matmul", "paged_attention", '
+          '"paged_attention_quant"]')
     print(json.dumps({"kernels": table}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
@@ -685,7 +730,7 @@ def serve_trace(vocab: int):
 
 
 def serve(torch, dev, cfg, trace, *, quant, kernel, stats, counters,
-          on_tick=None):
+          on_tick=None, kv_quant=False):
     """Serve the trace through ServeScheduler; returns (results, sched,
     forwards, wall seconds).  ``counters`` are zeroed just before the run;
     ``forwards`` counts the decode steps, chunk forwards and bucketed
@@ -699,7 +744,8 @@ def serve(torch, dev, cfg, trace, *, quant, kernel, stats, counters,
     if quant:
         params = quantize_model_params(cfg, params)
     sc = ServeConfig(**SERVE, attn_kernel="pallas" if kernel else "off",
-                     quant="pallas" if quant else False, with_stats=stats)
+                     quant="pallas" if quant else False, with_stats=stats,
+                     kv_quant=kv_quant, kv_bits=KV_BITS)
     sched = ServeScheduler(cfg, params, sc)
     fwd = {"decode": 0, "chunk": 0, "prefill": 0}
 
@@ -935,6 +981,364 @@ def phase7(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
                scope=f"one decode step: {cfg.n_layers} launches, B={b}, "
                      f"{touched} touched pages, splits {splits}")
     return out
+
+
+def quant_case(torch, dev, page_len, nb, g, r, d, lengths, n_bits, q_dtype,
+               seed, garbage):
+    """A quantized pool laid out as the scheduler lays it out (codes under
+    each page's first-row scale) and a tail ring whose active half holds
+    each row's newest page exactly; the trash page's codes and scales (up
+    to +-127), the ring's other rows and its junk bin are garbage drawn
+    from ``garbage``."""
+    from repro_torch.core.logquant import quantize_page_codes, scale_exponent
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+
+    gen = torch.Generator().manual_seed(seed)
+    b = len(lengths)
+    n_pages = 1 + b * nb
+    table = torch.from_numpy(pa_ops.make_page_table(lengths, nb, page_len))
+    q = torch.randn((b, g, r, d), generator=gen).to(q_dtype)
+    junk = torch.Generator().manual_seed(1000 + garbage)
+    out = [q]
+    for _ in ("k", "v"):
+        x = torch.randn((n_pages, page_len, g, d), generator=gen)
+        se = scale_exponent(x[:, 0], dim=-1)                   # (P, G)
+        codes = quantize_page_codes(x, se[:, None, :, None], n_bits)
+        lim = 256 if n_bits >= 8 else 128
+        codes[0] = torch.randint(-lim, lim, codes[0].shape,
+                                 generator=junk).to(codes.dtype)
+        se[0] = torch.randint(-127, 128, se[0].shape, generator=junk)
+        tail = torch.randn((b, 2 * page_len + 1, g, d), generator=junk) * 1e3
+        for i, n in enumerate(lengths):
+            tb = max(n - 1, 0) // page_len
+            if table[i, tb]:
+                half = (tb % 2) * page_len
+                tail[i, half:half + page_len] = x[table[i, tb]]
+        out += [codes, se, tail]
+    q, kc, ks, kt, vc, vs, vt = out
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    return tuple(t.to(dev) for t in (q, kc, ks, vc, vs, kt, vt, table, lens))
+
+
+def k4_against_plain(torch, pa_ops, qg, kc, ks, vc, vs, table, lens, n_bits,
+                     splits, what):
+    """K4 and plain partials of one call within f32 tolerance, merged
+    outputs too on live rows, no NaN; returns the merged max |diff|."""
+    nb = table.shape[1]
+    pt = torch.nn.functional.pad(table, (0, (-nb) % splits))
+    o, m, l = pa_ops.paged_attention_quant(qg, kc, ks, vc, vs, pt, lens,
+                                           n_bits, splits)
+    po, pm, pl = pa_ops.paged_attention_quant_plain(qg, kc, ks, vc, vs, pt,
+                                                    lens, n_bits, splits)
+    torch.cuda.synchronize()
+    check(torch.equal(m <= pa_ops.NEG_INF / 2, pm <= pa_ops.NEG_INF / 2),
+          f"K4 ({what}): the splits holding a valid token differ")
+    for a, e, nm in ((o, po, "o"), (m, pm, "m"), (l, pl, "l")):
+        check(close(torch, a, e, F32_TOL) >= 0,
+              f"K4 ({what}): partial {nm} outside f32 tolerance")
+    out = pa_ops.merge_split_softmax(m, l, o, axis=2)
+    ref = pa_ops.merge_split_softmax(pm, pl, po, axis=2)
+    check(not bool(torch.isnan(out).any()), f"K4 ({what}): NaN output")
+    live = lens > 0
+    err = close(torch, out[live], ref[live], F32_TOL)
+    check(err >= 0, f"K4 ({what}): merged output differs from the plain "
+          f"version by {-err}")
+    return err
+
+
+def phase8(torch, dev, pa_ops) -> float:
+    geos = [(pl, nb, g, r, d) for pl, nb in ((1, 4), (4, 4), (8, 3))
+            for g, r in ((1, 1), (2, 2), (1, 3)) for d in (8, 16)]
+    geos.append((16, 8, 3, 3, 64))
+    err, n = 0.0, 0
+    for i, (pl, nb, g, r, d) in enumerate(geos):
+        mx = pl * nb
+        lengths = [x for x in dict.fromkeys(
+            [0, 1, pl - 1, pl, pl + 1, 2 * pl, mx]) if 0 <= x <= mx]
+        for n_bits in (2, 4, 8):
+            for dtype in (torch.float32, torch.bfloat16):
+                q, kc, ks, vc, vs, _, _, table, lens = quant_case(
+                    torch, dev, pl, nb, g, r, d, lengths, n_bits, dtype,
+                    100 + i, 0)
+                for splits in (1, 2, 3, 4):
+                    err = max(err, k4_against_plain(
+                        torch, pa_ops, q, kc, ks, vc, vs, table, lens,
+                        n_bits, splits, f"page_len {pl} G {g} R {r} D {d} "
+                        f"n_bits {n_bits} {dtype} splits {splits}"))
+                    n += 1
+    garbage_cases = 0
+    for n_bits in (2, 4, 8):
+        for dtype in (torch.float32, torch.bfloat16):
+            for pl, g, r, d in ((4, 2, 2, 8), (16, 3, 3, 64)):
+                lengths = [0, 1, pl - 1, pl, pl + 1, 3 * pl]
+                live = torch.tensor(lengths, device=dev) > 0
+                for splits in (1, 2, 3, 4):
+                    outs = []
+                    for garbage in (0, 1, 2):
+                        q, *rest = quant_case(torch, dev, pl, 4, g, r, d,
+                                              lengths, n_bits, dtype, 7,
+                                              garbage)
+                        out = pa_ops.paged_decode_attention_quant(
+                            q.reshape(len(lengths), 1, g * r, d), *rest,
+                            n_bits=n_bits, splits=splits)
+                        check(not bool(torch.isnan(out.float()).any()),
+                              "K4: NaN output under garbage")
+                        outs.append(out)
+                    for out in outs[1:]:
+                        check(torch.equal(out[live], outs[0][live]),
+                              f"K4: garbage reached a live row (n_bits "
+                              f"{n_bits}, {dtype}, page_len {pl}, splits "
+                              f"{splits})")
+                    garbage_cases += 1
+    print(f"phase 8: K4 within f32 tolerance of its plain version in {n} "
+          f"cases (n_bits 2/4/8, q f32/bf16, splits 1-4, max |diff| "
+          f"{err:.3e}); trash-page codes/scales and tail-ring garbage "
+          f"bitwise invisible on live rows, no NaN, in {garbage_cases} "
+          f"cases")
+    return err
+
+
+def audited_quant(torch, inner, audit):
+    """``paged_decode_attention_quant`` that also computes the quantized
+    gather read (``_quant_paged_gather`` + ``_decode_attention``, the
+    dequantize-and-gather math of the gather path) on the same inputs:
+    counts calls, keeps the max |diff| on the rows of slots holding pages
+    and counts tolerance failures."""
+    from repro_torch.models.attention import (_decode_attention,
+                                              _quant_paged_gather)
+
+    def call(q, kc, ks, vc, vs, kt, vt, table, lengths, *, n_bits=4,
+             splits=1):
+        out = inner(q, kc, ks, vc, vs, kt, vt, table, lengths, n_bits=n_bits,
+                    splits=splits)
+        kg = _quant_paged_gather(kc, ks, kt, table, lengths, n_bits, kt.dtype)
+        vg = _quant_paged_gather(vc, vs, vt, table, lengths, n_bits, vt.dtype)
+        kv_pos = torch.arange(kg.shape[1], dtype=torch.int32,
+                              device=q.device).expand(q.shape[0], -1)
+        ref = _decode_attention(q, kg, vg, (lengths - 1)[:, None], kv_pos,
+                                lengths)
+        live = (lengths > 0) & (table[:, 0] != 0)
+        err = close(torch, out[live], ref[live], F32_TOL)
+        audit["calls"] += 1
+        audit["bad"] += err < 0
+        audit["err"] = max(audit["err"], abs(err))
+        return out
+    return call
+
+
+def code_digests(torch, attn, digests):
+    """``_quant_paged_write`` that also keeps, per call, a weighted sum of
+    the code pool without the trash page (on the device): two runs wrote
+    the same codes in the same order iff their digests agree (up to a
+    collision)."""
+    inner = attn._quant_paged_write
+    weights = {}
+
+    def write(codes, *args):
+        inner(codes, *args)
+        flat = codes[1:].reshape(-1)
+        w = weights.get(flat.numel())
+        if w is None:
+            w = weights[flat.numel()] = torch.arange(
+                flat.numel(), device=flat.device) % 65521 + 1
+        digests.append((flat.long() * w).sum())
+    return write
+
+
+def phase9(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.core.logquant import dequantize_page_codes
+    from repro_torch.models import attention as attn
+    from repro_torch.serving.kvpool import (blocks_for_tokens, page_kv_bytes,
+                                            tail_ring_bytes)
+
+    cfg = get_config("smollm-135m")
+    trace = serve_trace(cfg.vocab_size)
+    pl, splits = SERVE["page_len"], SERVE["attn_splits"]
+    kernels = (pa_ops.paged_attention, pa_ops.paged_attention_quant,
+               l2_ops.log2quant, bm_ops.bitplane_matmul)
+    print(f"phase 9: ServeScheduler as phase 7 with kv_quant=True, "
+          f"kv_bits={KV_BITS}")
+
+    # f32, float projections, cut in depth: the quantized-gather read and K4
+    c32 = cfg.replace(dtype=torch.float32, n_layers=F32_KVQ_LAYERS)
+    toks, digests = {}, {}
+    inner_attn, inner_write = (pa_ops.paged_decode_attention_quant,
+                               attn._quant_paged_write)
+    for kernel in (False, True):
+        audit = {"calls": 0, "err": 0.0, "bad": 0}
+        digests[kernel] = []
+        attn._quant_paged_write = code_digests(torch, attn, digests[kernel])
+        if kernel:
+            pa_ops.paged_decode_attention_quant = audited_quant(
+                torch, inner_attn, audit)
+        try:
+            res, _, fwd, wall = serve(torch, dev, c32, trace, quant=False,
+                                      kernel=kernel, stats=False,
+                                      counters=kernels, kv_quant=True)
+        finally:
+            pa_ops.paged_decode_attention_quant = inner_attn
+            attn._quant_paged_write = inner_write
+        want = c32.n_layers * fwd["decode"] if kernel else 0
+        check(pa_ops.paged_attention_quant.launches == want
+              and pa_ops.paged_attention.launches == 0,
+              f"K4 launched {pa_ops.paged_attention_quant.launches} times "
+              f"(K3 {pa_ops.paged_attention.launches}), expected {want}")
+        check(audit["calls"] == want and audit["bad"] == 0,
+              f"K4 against the quantized gather: {audit}")
+        toks[kernel] = [r.tokens for r in res]
+        fwd.pop("decode_only")
+        print(f"  f32 float kv_quant, {c32.n_layers} layers, "
+              f"{'K4' if kernel else 'gather'}: "
+              f"{wall:.3f} s, {fwd}"
+              + (f"; every K4 call within f32 tolerance of the quantized "
+                 f"gather math ({audit['calls']} calls, max |diff| "
+                 f"{audit['err']:.3e})" if kernel else ""))
+    same = [a == b for a, b in zip(toks[False], toks[True])]
+    d0, d1 = (torch.stack(digests[k]).cpu() for k in (False, True))
+    codes_same = d0.shape == d1.shape and bool(torch.equal(d0, d1))
+    first = (None if codes_same else
+             int((d0[:len(d1)] != d1[:len(d0)]).nonzero()[0, 0]))
+    print(f"  f32 kv_quant: K4 tokens equal the gather's for {sum(same)}/"
+          f"{len(trace)} requests; the two runs wrote "
+          + ("the same K/V codes in every write" if codes_same else
+             f"a different K/V code first in pool write {first} of "
+             f"{len(d0)}"))
+    check(all(same) or not codes_same,
+          f"f32 kv_quant: K4 tokens differ from the gather's for "
+          f"{len(trace) - sum(same)} requests with every K/V code written "
+          f"equal")
+
+    # bf16, quant=True, K4: the slice's main path
+    best = {"touched": -1}
+
+    def on_tick(sched):
+        lens = sched._pool["length"].cpu() + 1
+        touched = int(((lens - 1) // pl).sum())
+        if touched > best["touched"]:
+            layer = sched._pool["layers"][0]
+            best.update(touched=touched, lens=lens.to(dev),
+                        table=torch.from_numpy(sched._table.copy()).to(dev),
+                        **{k: layer[k].clone() for k in (
+                            "k_codes", "k_scale", "v_codes", "v_scale")})
+
+    res, sched, fwd, wall = serve(torch, dev, cfg, trace, quant=True,
+                                  kernel=True, stats=False, counters=kernels,
+                                  on_tick=on_tick, kv_quant=True)
+    launches = {k.__name__: k.launches for k in kernels}
+    dec = fwd.pop("decode_only")
+    n_fwd = sum(fwd.values())
+    check(launches["paged_attention_quant"] == cfg.n_layers * fwd["decode"]
+          and launches["paged_attention"] == 0,
+          f"K4 launches {launches} != {cfg.n_layers} x {fwd['decode']} "
+          f"decode forwards")
+    for kn in ("log2quant", "bitplane_matmul"):
+        check(launches[kn] == cfg.n_layers * len(PROJ) * n_fwd,
+              f"{kn} launched {launches[kn]} times, expected "
+              f"{cfg.n_layers * len(PROJ)} x {n_fwd} forwards")
+    total = sum(len(r.tokens) for r in res)
+    st = sched.prefix_cache_stats()
+    check(st["cached_tokens"] > 0 and st["cached_tokens"] % pl != 0,
+          f"prefix cache stats {st}: expected whole-page and copy-on-write "
+          f"hits")
+    print(f"  bf16 quant kv_quant K4: {total} tokens in {wall:.3f} s = "
+          f"{total / wall:.1f} tok/s (prefill included, eager); decode-only "
+          f"ticks: {dec['tokens']} tokens in {dec['s']:.3f} s = "
+          f"{dec['tokens'] / max(dec['s'], 1e-9):.1f} tok/s over "
+          f"{dec['ticks']} ticks; forwards {fwd}; launches {launches}")
+    print(f"    prefix cache: hit_rate {st['hit_rate']:.6f}, cached_tokens "
+          f"{st['cached_tokens']:.0f}/{st['prompt_tokens']:.0f}, lookups hit "
+          f"{st['lookup_hits']:.0f}/{st['lookups']:.0f}, pages_in_use "
+          f"{st['pages_in_use']:.0f}")
+
+    # pool bytes: the reference bench's byte model (f32 dense pages and
+    # tail rings), machine-independent
+    g, d = cfg.n_kv_heads, cfg.head_dim
+    pages = sum(blocks_for_tokens(p.size + SERVE_NEW, pl) for p in trace)
+    dense = pages * page_kv_bytes(pl, g, d, layers=cfg.n_layers)
+    ring = tail_ring_bytes(pl, g, d, layers=cfg.n_layers)
+    qpool = (pages * page_kv_bytes(pl, g, d, layers=cfg.n_layers, quant=True,
+                                   kv_bits=KV_BITS)
+             + SERVE["max_slots"] * ring)
+    print(f"    pool bytes per request: dense {dense / len(trace):.1f}, "
+          f"quantized {qpool / len(trace):.1f}; pool_bytes_saved_frac "
+          f"{1 - qpool / dense:.6f}; tail_ring_bytes_per_slot {ring} "
+          f"({pages} pages)")
+
+    # K4 on the tick that touched most full pages: real pool, table, lengths
+    lens, table = best["lens"].to(torch.int32), best["table"]
+    kern_lens = ((lens - 1).clamp(min=0) // pl * pl).to(torch.int32)
+    b, nb = table.shape
+    r = cfg.n_heads // g
+    gen = torch.Generator(device=dev).manual_seed(9)
+    qs = [torch.randn((b, g, r, d), generator=gen, device=dev,
+                      dtype=cfg.dtype) for _ in range(cfg.n_layers)]
+    pool = [(best["k_codes"][i], best["k_scale"][i], best["v_codes"][i],
+             best["v_scale"][i]) for i in range(cfg.n_layers)]
+    err = 0.0
+    for layer in range(cfg.n_layers):
+        err = max(err, k4_against_plain(
+            torch, pa_ops, qs[layer], *pool[layer], table, kern_lens,
+            KV_BITS, splits, f"full-width tick, layer {layer}"))
+    print(f"  tick with {best['touched']} full pages (lengths "
+          f"{lens.tolist()}): K4 within f32 tolerance of its plain version "
+          f"on all {cfg.n_layers} layers (max |diff| {err:.3e})")
+
+    def k4_step():
+        for layer in range(cfg.n_layers):
+            pa_ops.paged_attention_quant(qs[layer], *pool[layer], table,
+                                         kern_lens, KV_BITS, splits)
+
+    def plain_step():
+        for layer in range(cfg.n_layers):
+            pa_ops.paged_attention_quant_plain(qs[layer], *pool[layer], table,
+                                               kern_lens, KV_BITS, splits)
+
+    valid = (torch.arange(nb * pl, device=dev)[None]
+             < kern_lens[:, None])[:, None, None, :]      # (B, 1, 1, S)
+
+    def library_step():
+        for layer in range(cfg.n_layers):
+            kc, ks, vc, vs = pool[layer]
+            kp = dequantize_page_codes(kc, ks[:, None, :, None], KV_BITS,
+                                       cfg.dtype)
+            vp = dequantize_page_codes(vc, vs[:, None, :, None], KV_BITS,
+                                       cfg.dtype)
+            kg = attn._paged_gather(kp, table).transpose(1, 2)
+            vg = attn._paged_gather(vp, table).transpose(1, 2)
+            torch.nn.functional.scaled_dot_product_attention(
+                qs[layer].reshape(b, g * r, 1, d), kg, vg, attn_mask=valid,
+                enable_gqa=True)
+
+    ms, plain_ms = graph_ms(torch, k4_step), graph_ms(torch, plain_step)
+    lib_ms = graph_ms(torch, library_step)
+    eager = eager_ms(torch, k4_step)
+    esz = torch.tensor([], dtype=cfg.dtype).element_size()
+    csz = best["k_codes"].element_size()
+    full = int((kern_lens // pl).sum())
+    page_bytes = pl * g * d * csz * 2 + g * 4 * 2     # K and V codes, scales
+    io_bytes = (b * g * r * d * esz + b * g * splits * r * (d + 2) * 4
+                + b * nb * 4 + b * 4)
+    step_bytes = cfg.n_layers * (full * page_bytes + io_bytes)
+    step_ops = cfg.n_layers * 4 * g * r * d * int(kern_lens.sum())
+    t_bytes = step_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = step_ops / INT32_OPS_PER_S * 1e3
+    print(f"  K4 per decode step ({cfg.n_layers} launches, B={b}, splits "
+          f"{splits}), CUDA-graph replay on {card}: {ms:.4f} ms "
+          f"({ms / cfg.n_layers * 1e3:.2f} us per launch); bound "
+          f"{max(t_bytes, t_ops):.5f} ms ({step_bytes} bytes: {full} full "
+          f"pages x {page_bytes} B of codes and scales per layer + q + "
+          f"partials); plain {plain_ms:.4f} ms; issued eagerly {eager:.4f} "
+          f"ms; context: dequantize the pool, then _paged_gather + "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms (the port never "
+          f"calls it)")
+    return dict(launches=launches["paged_attention_quant"], ms=ms,
+                plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=lib_ms, eager_ms=eager, max_abs_err=err,
+                scope=f"one decode step: {cfg.n_layers} launches, B={b}, "
+                      f"{full} full pages, splits {splits}, n_bits "
+                      f"{KV_BITS}")
 
 
 def _to(torch, tree, dev):

@@ -1,4 +1,4 @@
-"""Dense-gather oracle for the paged-attention decode kernel (port of
+"""Dense-gather oracles for the paged-attention decode kernels (port of
 ``src/repro/kernels/paged_attention/ref.py``).
 
 Op for op the scheduler's dense path specialised to decode: gather every
@@ -13,6 +13,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch.core.logquant import dequantize_page_codes
 
 NEG_INF = -1e30
 
@@ -38,3 +40,20 @@ def paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bgrk,bkgd->bgrd", p.to(q.dtype).float(), vg.float())
     return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def paged_attention_quant_reference(q: torch.Tensor, k_codes: torch.Tensor,
+                                    k_scale: torch.Tensor,
+                                    v_codes: torch.Tensor,
+                                    v_scale: torch.Tensor,
+                                    page_table: torch.Tensor,
+                                    lengths: torch.Tensor,
+                                    n_bits: int = 4) -> torch.Tensor:
+    """The quantized kernel's oracle: dequantize both code pools under
+    their (P, G) scales, then :func:`paged_attention_reference` with ``q``
+    widened to f32 (the kernel keeps ``p`` in f32).  Returns (B, 1, H, D)
+    in q's dtype."""
+    k = dequantize_page_codes(k_codes, k_scale[:, None, :, None], n_bits)
+    v = dequantize_page_codes(v_codes, v_scale[:, None, :, None], n_bits)
+    return paged_attention_reference(q.float(), k, v, page_table,
+                                     lengths).to(q.dtype)

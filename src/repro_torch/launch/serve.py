@@ -20,7 +20,7 @@ package's::
         --continuous --requests 16 --max-slots 4 --new-tokens 16 \
         [--chunked [auto|always]] [--chunk-len N] [--paged] [--page-len N] \
         [--prefix-cache] [--attn-kernel] [--attn-splits N] [--quant] \
-        [--config serve.json] [--dump-config [PATH]]
+        [--kv-quant [BITS]] [--config serve.json] [--dump-config [PATH]]
 
 The device defaults to the card; ``--device cpu`` runs the plain-PyTorch
 path on the host.
@@ -64,7 +64,9 @@ def build_serve_config(args):
     quantum = 1
     if chunked != "off" or args.prefix_cache:
         quantum = chunk_len
-    paged = bool(args.paged or args.prefix_cache or args.attn_kernel)
+    kv_quant = args.kv_quant is not None
+    paged = bool(args.paged or args.prefix_cache or args.attn_kernel
+                 or kv_quant)
     if paged:
         quantum = math.lcm(quantum, args.page_len)
     if quantum > 1:
@@ -75,7 +77,8 @@ def build_serve_config(args):
         tick_steps=args.tick_steps, chunked=chunked, chunk_len=chunk_len,
         paged=paged, page_len=args.page_len, prefix_cache=args.prefix_cache,
         attn_kernel="pallas" if args.attn_kernel else "off",
-        attn_splits=args.attn_splits)
+        attn_splits=args.attn_splits, kv_quant=kv_quant,
+        kv_bits=args.kv_quant or 4)
 
 
 def _load_serve_config(args):
@@ -121,7 +124,8 @@ def _serve_continuous(cfg, params, args, dev):
         tag += (f", paged/{config.page_len}"
                 + ("+prefix" if config.prefix_cache else "")
                 + (f"+kernel/s{config.attn_splits}"
-                   if config.attn_kernel != "off" else ""))
+                   if config.attn_kernel != "off" else "")
+                + (f"+kvq/{config.kv_bits}b" if config.kv_quant else ""))
     print(f"[serve] {cfg.name} on {dev}: continuous batching{tag} — "
           f"{len(results)} requests, {config.max_slots} slots, "
           f"tick={config.tick_steps}: {total} tokens in {dt:.3f}s "
@@ -196,6 +200,11 @@ def main(argv=None):
                          "walks the page tables instead of gathering them")
     ap.add_argument("--attn-splits", type=int, default=1,
                     help="split-KV partials of the paged-attention kernel")
+    ap.add_argument("--kv-quant", nargs="?", const=4, type=int,
+                    default=None, metavar="BITS",
+                    help="log2-quantize the KV pages at BITS exponent bits "
+                         "(default 4; implies --paged); each slot's newest "
+                         "pages stay dense in its tail ring")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="radix prefix cache over the paged pool (implies "
                          "--paged); the trace draws shared-prefix prompts")

@@ -1,6 +1,6 @@
 """GQA attention: flash-style chunked prefill, KV-cache decode, and the
-paged slot pool (forward only; port of ``src/repro/models/attention.py``
-without its log2-quantized page pool).
+paged slot pool, dense or log2-quantized (forward only; port of
+``src/repro/models/attention.py``).
 
 Queries reshape to (B, S, G, R, D) with G = kv heads and R = group size,
 so K/V are never repeated.  Scores and the PV product accumulate in
@@ -12,10 +12,12 @@ dense ``KVCache`` takes a scalar length (one-shot serving) or per-slot
 ``(B,)`` lengths (the continuous-batching slot pool), whose per-row writes
 clamp their start to ``max_len - S`` as ``lax.dynamic_update_slice``
 does; the paged ``PagedKVCache`` scatters rows into a shared page pool at
-(page, offset) and redirects masked rows to the trash page 0.  Decode over
-the paged pool either gathers the slot's pages into its dense view or,
-with ``cfg.paged_attn_kernel != "off"``, walks the page table in the
-paged-attention kernel (``kernels/paged_attention``).
+(page, offset) and redirects masked rows to the trash page 0; the
+log2-quantized ``QuantPagedKVCache`` stores each row as packed codes under
+its page's power-of-two scale, plus a dense tail ring of each slot's two
+newest pages.  Decode over a paged pool either gathers the slot's pages
+into its dense view or, with ``cfg.paged_attn_kernel != "off"``, walks the
+page table in the paged-attention kernels (``kernels/paged_attention``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core.logquant import (dequantize_page_codes,
+                                      quantize_page_codes, scale_exponent)
 from repro_torch.models.layers import apply_rope, dense
 
 NEG_INF = -1e30
@@ -145,6 +149,24 @@ class PagedKVCache(NamedTuple):
     length: torch.Tensor      # (B,) int32 per-slot valid lengths
 
 
+class QuantPagedKVCache(NamedTuple):
+    """Log2-quantized page pool (``ServeConfig(kv_quant=True)``): pages
+    hold packed ``core.logquant`` wire codes and one power-of-two scale
+    exponent per (page, head); each slot's newest two pages also stay
+    dense in its tail ring, so decode-adjacent tokens read what the dense
+    pool would hold.  A row's codes are a pure function of its value and
+    its page's first-row scale, so rewriting a position reproduces the
+    same bytes."""
+    k_codes: torch.Tensor     # (P, page_len, G, D) packed codes
+    v_codes: torch.Tensor
+    k_scale: torch.Tensor     # (P, G) int32 scale exponents
+    v_scale: torch.Tensor
+    k_tail: torch.Tensor      # (B, 2*page_len + 1, G, D); last row = junk
+    v_tail: torch.Tensor
+    page_table: torch.Tensor  # (B, n_blocks) int32 page ids, 0 = trash
+    length: torch.Tensor      # (B,) int32 per-slot valid lengths
+
+
 def _paged_write(pool: torch.Tensor, table: torch.Tensor, new: torch.Tensor,
                  pos: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
     """Scatter ``new`` (B, S, G, D) rows into the page pool, in place.
@@ -162,6 +184,80 @@ def _paged_write(pool: torch.Tensor, table: torch.Tensor, new: torch.Tensor,
     vals = new.reshape((-1,) + tuple(new.shape[2:])).to(pool.dtype)
     pool[page.reshape(-1), off.reshape(-1)] = vals
     return pool
+
+
+def _quant_paged_write(codes: torch.Tensor, scale: torch.Tensor,
+                       tail: torch.Tensor, table: torch.Tensor,
+                       new: torch.Tensor, pos: torch.Tensor,
+                       keep: torch.Tensor, start: torch.Tensor, adv,
+                       n_bits: int) -> None:
+    """Quantize ``new`` (B, S, G, D) rows at ``pos`` (B, S) into the code
+    pool ``(P, page_len, G, D)``, the scales ``(P, G)`` and the tail ring
+    ``(B, 2*page_len + 1, G, D)``, in place.  ``start`` (B,) is the length
+    before the write, ``adv`` the per-row advance.
+
+    * codes: a row whose page starts inside this write takes the scale of
+      the page's first row; a row of an older page the pool's stored
+      scale, read before this write's scale scatter.
+    * scales: only offset-0 rows own their page's entry; every other row
+      writes the trash page's entry.
+    * tail ring: rows within the newest ``2*page_len`` positions land at
+      ``pos % (2*page_len)``; older and masked rows at the junk bin.
+
+    Masked rows go to the trash page as in :func:`_paged_write`.  Writes
+    that land on the trash page or the junk bin may collide; nothing
+    reads them unmasked."""
+    page_len = codes.shape[1]
+    nb = table.shape[1]
+    b, s = pos.shape
+    g, d = new.shape[2:]
+    blk = torch.clamp(pos // page_len, 0, nb - 1).long()
+    page = torch.gather(table.long(), 1, blk)
+    in_alloc = keep & (pos // page_len < nb)
+    page = torch.where(in_alloc, page, 0)
+    off = torch.where(in_alloc, pos % page_len, 0).long()
+
+    start = start.expand(b)
+    p0 = pos - pos % page_len                     # each row's page start
+    own = p0 >= start[:, None]                    # page starts in this write
+    j0 = torch.clamp(p0 - start[:, None], 0, s - 1).long()
+    row0 = torch.gather(new, 1, j0[..., None, None].expand(b, s, g, d))
+    own_se = scale_exponent(row0, dim=-1)         # (B, S, G)
+    se = torch.where(own[..., None], own_se, scale[page])
+    qcodes = quantize_page_codes(new, se[..., None], n_bits)
+    codes[page.reshape(-1), off.reshape(-1)] = qcodes.reshape(-1, g, d).to(
+        codes.dtype)
+    sp = torch.where(in_alloc & (pos % page_len == 0), page, 0)
+    scale[sp.reshape(-1)] = own_se.reshape(-1, g)
+
+    ring = 2 * page_len
+    in_ring = in_alloc & (pos >= (start + adv)[:, None] - ring)
+    toff = torch.where(in_ring, pos % ring, ring).long()
+    bidx = torch.arange(b, device=pos.device)[:, None].expand(b, s)
+    tail[bidx.reshape(-1), toff.reshape(-1)] = new.reshape(-1, g, d).to(
+        tail.dtype)
+
+
+def _quant_paged_gather(codes: torch.Tensor, scale: torch.Tensor,
+                        tail: torch.Tensor, table: torch.Tensor,
+                        lengths: torch.Tensor, n_bits: int,
+                        dtype) -> torch.Tensor:
+    """The dense logical view ``(B, n_blocks * page_len, G, D)`` of a
+    quantized pool: each page dequantized under its scale, the newest page
+    (block ``(length - 1) // page_len``) read from the tail ring instead.
+    Junk rows decode finite and are masked by the caller."""
+    from repro_torch.kernels.paged_attention.ops import tail_rows
+
+    b, nb = table.shape
+    page_len = codes.shape[1]
+    t = table.long()
+    deq = dequantize_page_codes(codes[t], scale[t][:, :, None, :, None],
+                                n_bits, dtype)     # (B, nb, pl, G, D)
+    rows, tb = tail_rows(tail, lengths, page_len)
+    use_tail = torch.arange(nb, device=t.device)[None] == tb[:, None]
+    out = torch.where(use_tail[:, :, None, None, None],
+                      rows[:, None].to(dtype), deq)
+    return out.reshape((b, nb * page_len) + tuple(codes.shape[2:]))
 
 
 def _paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -192,9 +288,10 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg,
     cache).  ``chunk_valid`` (``(B,)``, chunked prefill) makes ``x`` one
     right-padded mid-prompt chunk per row: only its first ``chunk_valid[b]``
     rows are written and queries attend over the cache.  With a
-    ``PagedKVCache`` the same writes scatter into pages; an S = 1 read goes
-    through the paged-attention kernel when ``cfg.paged_attn_kernel`` is
-    not ``"off"``, else through the gathered view.
+    ``PagedKVCache`` the same writes scatter into pages (with a
+    ``QuantPagedKVCache`` they quantize on the way); an S = 1 read goes
+    through a paged-attention kernel when ``cfg.paged_attn_kernel`` is not
+    ``"off"``, else through the gathered view.
     """
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -209,7 +306,7 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg,
         out = flash_attention(q, k, v, positions, positions, causal=True,
                               kv_chunk=cfg.kv_chunk)
         new_cache = None
-    elif isinstance(cache, PagedKVCache):
+    elif isinstance(cache, (PagedKVCache, QuantPagedKVCache)):
         ar = torch.arange(s, dtype=torch.int32, device=x.device)
         pos = cache.length[:, None] + ar[None]
         if chunk_valid is not None:
@@ -218,25 +315,47 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg,
         else:
             keep = torch.ones((b, s), dtype=torch.bool, device=x.device)
             adv = s
-        _paged_write(cache.k, cache.page_table, k, pos, keep)
-        _paged_write(cache.v, cache.page_table, v, pos, keep)
         new_len = cache.length + adv
-        if s == 1 and getattr(cfg, "paged_attn_kernel", "off") != "off":
-            from repro_torch.kernels.paged_attention.ops import \
-                paged_decode_attention
-            out = paged_decode_attention(
-                q, cache.k, cache.v, cache.page_table, new_len,
-                splits=getattr(cfg, "paged_attn_splits", 1))
+        kernel = s == 1 and getattr(cfg, "paged_attn_kernel", "off") != "off"
+        splits = getattr(cfg, "paged_attn_splits", 1)
+        table = cache.page_table
+        if isinstance(cache, QuantPagedKVCache):
+            n_bits = getattr(cfg, "kv_bits", 4)
+            _quant_paged_write(cache.k_codes, cache.k_scale, cache.k_tail,
+                               table, k, pos, keep, cache.length, adv, n_bits)
+            _quant_paged_write(cache.v_codes, cache.v_scale, cache.v_tail,
+                               table, v, pos, keep, cache.length, adv, n_bits)
+            if kernel:
+                from repro_torch.kernels.paged_attention.ops import \
+                    paged_decode_attention_quant
+                out = paged_decode_attention_quant(
+                    q, cache.k_codes, cache.k_scale, cache.v_codes,
+                    cache.v_scale, cache.k_tail, cache.v_tail, table,
+                    new_len, n_bits=n_bits, splits=splits)
+            else:
+                kg = _quant_paged_gather(cache.k_codes, cache.k_scale,
+                                         cache.k_tail, table, new_len,
+                                         n_bits, cache.k_tail.dtype)
+                vg = _quant_paged_gather(cache.v_codes, cache.v_scale,
+                                         cache.v_tail, table, new_len,
+                                         n_bits, cache.v_tail.dtype)
         else:
-            kg = _paged_gather(cache.k, cache.page_table)
-            vg = _paged_gather(cache.v, cache.page_table)
+            _paged_write(cache.k, table, k, pos, keep)
+            _paged_write(cache.v, table, v, pos, keep)
+            if kernel:
+                from repro_torch.kernels.paged_attention.ops import \
+                    paged_decode_attention
+                out = paged_decode_attention(q, cache.k, cache.v, table,
+                                             new_len, splits=splits)
+            else:
+                kg = _paged_gather(cache.k, table)
+                vg = _paged_gather(cache.v, table)
+        if not kernel:
             kv_pos = torch.arange(kg.shape[1], dtype=torch.int32,
                                   device=x.device).expand(b, -1)
             attend = _decode_attention if s == 1 else _chunk_attention
             out = attend(q, kg, vg, positions, kv_pos, new_len)
-        new_cache = PagedKVCache(k=cache.k, v=cache.v,
-                                 page_table=cache.page_table,
-                                 length=new_len)
+        new_cache = cache._replace(length=new_len)
     elif chunk_valid is not None:
         # write only the real slab rows (pad rows write the cache's own
         # bytes back), then attend over the cache

@@ -1,11 +1,12 @@
-"""Carry the JAX package's parameter tree into the port's tensors.
+"""Carry the JAX package's parameter tree and cache pools into the port's
+tensors.
 
-The input is the reference tree after ``jax.tree.map(np.asarray, params)``:
+The input is the reference tree after ``jax.tree.map(np.asarray, tree)``:
 dicts and tuples of numpy arrays (bfloat16 arrives as the ``ml_dtypes``
 type), scan-stacked leaves ``(R, ...)``, and the quantized ``*_q`` leaves
 as namedtuple-like objects read by field name.  The tests use it so both
-frameworks compute with the same weights; on the card the port makes its
-own with ``init_params``.
+frameworks compute with the same weights and start a write from the same
+pool; on the card the port makes its own with ``init_params``.
 """
 
 from __future__ import annotations
@@ -48,4 +49,11 @@ def _convert(leaf, dev: torch.device):
 def params_from_numpy(cfg: ModelConfig, tree: Any, device=None) -> Any:
     """The reference tree (numpy leaves) as the port's params on ``device``."""
     _check_dense(cfg)
+    return _convert(tree, resolve_device(device))
+
+
+def pool_from_numpy(tree: Any, device=None) -> Any:
+    """A reference cache pool (``{"layers": (...), "length": ...}`` with
+    numpy leaves: dense or quantized pages, codes, scales, tail rings) as
+    the port's tensors on ``device``."""
     return _convert(tree, resolve_device(device))

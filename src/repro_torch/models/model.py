@@ -6,7 +6,8 @@ stacked over the ``R`` repeats (leading dim), weights ``(K, N)``.  Where
 the reference scans over repeats, :func:`forward` runs a Python loop over
 layer views of the stacked leaves.  Caches are ``(R, B, max_len, G, D)``
 per K/V and are updated in place; the paged slot pool
-(:func:`init_paged_pool`) is ``(R, n_pages, page_len, G, D)`` per K/V.
+(:func:`init_paged_pool`) is ``(R, n_pages, page_len, G, D)`` per K/V, or
+with ``kv_quant`` packed log2 codes, per-page scales and a tail ring.
 """
 
 from __future__ import annotations
@@ -18,8 +19,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.logquant import code_dtype
 from repro_torch.core.shiftadd import QuantizedLinearParams, as_quant_ctx
-from repro_torch.models.attention import KVCache, PagedKVCache, attention
+from repro_torch.models.attention import (KVCache, PagedKVCache,
+                                          QuantPagedKVCache, attention)
 from repro_torch.models.layers import rms_norm, swiglu
 
 Params = Dict[str, Any]
@@ -28,13 +31,15 @@ Params = Dict[str, Any]
 @dataclass(frozen=True)
 class ModelConfig:
     """The dense-decoder fields of the reference's ``ModelConfig``, with
-    torch dtypes (the MoE, SSM, frontend and quantized-pool fields belong
-    to later slices of the port).
+    torch dtypes (the MoE, SSM and frontend fields belong to later slices
+    of the port).
 
     ``paged_attn_kernel``: ``"off"`` reads the paged pool through the
     dense gather; ``"pallas"`` (the reference's name) through the CUDA
     paged-attention kernel with ``paged_attn_splits`` split-KV partials.
-    Only the paged decode path reads them."""
+    Only the paged decode path reads them.  ``kv_quant`` makes
+    :func:`init_paged_pool` build the log2-quantized page pool at
+    ``kv_bits`` exponent bits."""
 
     name: str
     d_model: int
@@ -53,6 +58,8 @@ class ModelConfig:
     kv_chunk: int = 1024
     paged_attn_kernel: str = "off"    # off | pallas
     paged_attn_splits: int = 1
+    kv_quant: bool = False
+    kv_bits: int = 4
 
     @property
     def repeats(self) -> int:
@@ -131,13 +138,34 @@ def init_paged_pool(cfg: ModelConfig, batch: int, max_len: int,
     ``(R, n_pages, page_len, G, D)`` indexed through host-built per-slot
     page tables (page 0 is the trash page, ``serving.kvpool``); per-slot
     ``(batch,)`` lengths.  ``max_len`` must be a multiple of ``page_len``
-    so a slot's gathered view has the dense slab's shape."""
+    so a slot's gathered view has the dense slab's shape.
+
+    ``cfg.kv_quant=True`` stores the pool as packed log2 wire codes
+    ``{k,v}_codes (R, n_pages, page_len, G, D)`` (``code_dtype(kv_bits)``),
+    per-(page, head) power-of-two scale exponents ``{k,v}_scale (R,
+    n_pages, G)`` int32, and a dense per-slot tail ring ``{k,v}_tail (R,
+    batch, 2*page_len + 1, G, D)`` in the cache dtype holding each slot's
+    newest two pages (row ``2*page_len`` is the junk bin)."""
     if max_len % page_len:
         raise ValueError(f"max_len={max_len} must be a multiple of "
                          f"page_len={page_len}")
     dev = resolve_device(device)
-    return _kv_caches(cfg, (n_pages, page_len), dtype, dev,
-                      torch.zeros((batch,), dtype=torch.int32, device=dev))
+    length = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    if not cfg.kv_quant:
+        return _kv_caches(cfg, (n_pages, page_len), dtype, dev, length)
+    _check_dense(cfg)
+    dtype = dtype or cfg.cache_dtype or cfg.dtype
+    r, g, d = cfg.repeats, cfg.n_kv_heads, cfg.head_dim
+    ct = code_dtype(cfg.kv_bits)
+    layer = {}
+    for k in ("k", "v"):
+        layer[f"{k}_codes"] = torch.zeros((r, n_pages, page_len, g, d),
+                                          dtype=ct, device=dev)
+        layer[f"{k}_scale"] = torch.zeros((r, n_pages, g),
+                                          dtype=torch.int32, device=dev)
+        layer[f"{k}_tail"] = torch.zeros((r, batch, 2 * page_len + 1, g, d),
+                                         dtype=dtype, device=dev)
+    return {"layers": (layer,), "length": length}
 
 
 def _kv_caches(cfg: ModelConfig, rows: Tuple[int, int], dtype,
@@ -194,7 +222,8 @@ def forward(cfg: ModelConfig, params: Params, *, tokens: torch.Tensor,
     row: only real rows are written, queries attend over the cache, and
     each row's length advances by its ``chunk_valid`` (0 leaves the row's
     cache as it was).  ``page_table`` (``(B, n_blocks)`` int32) switches
-    the attention caches to the paged pool of :func:`init_paged_pool`.
+    the attention caches to the paged pool of :func:`init_paged_pool`
+    (dense or log2-quantized, by the leaves the pool holds).
 
     ``quant`` (bool | QuantCtx) routes the 7 projections of every layer
     through the QeiHaN path.  With ``return_stats=True`` a third element
@@ -229,6 +258,11 @@ def forward(cfg: ModelConfig, params: Params, *, tokens: torch.Tensor,
             ctx, collect=[] if return_stats else None)
         if caches is None:
             kv = None
+        elif page_table is not None and "k_codes" in layer_cache:
+            kv = QuantPagedKVCache(
+                **{f: layer_cache[f][r]
+                   for f in QuantPagedKVCache._fields[:6]},
+                page_table=page_table, length=base)
         elif page_table is not None:
             kv = PagedKVCache(k=layer_cache["k"][r], v=layer_cache["v"][r],
                               page_table=page_table, length=base)

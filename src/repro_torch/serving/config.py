@@ -8,9 +8,10 @@ as the reference, so a JSON written by either package loads in the other
 * ``resolved_n_pages`` takes no mesh: the port serves one card, so the
   default pool is not rounded to a data-axis size.
 * ``mesh_spec`` is kept in the schema, but the port's scheduler raises
-  ``NotImplementedError`` on anything other than ``None``; so does it on
-  ``kv_quant=True`` (the log2-quantized page pool comes with a later
-  slice of the port).
+  ``NotImplementedError`` on anything other than ``None``.
+* ``kv_quant=True`` with ``attn_kernel="pallas"`` reads the quantized
+  pool through the hand-written CUDA kernel
+  (``kernels/paged_attention/csrc/paged_attention_quant.cu``).
 * ``attn_kernel="pallas"`` keeps the reference's value name; in the port
   it selects the hand-written CUDA paged-attention decode kernel
   (``kernels/paged_attention/csrc/paged_attention.cu``), on CPU tensors

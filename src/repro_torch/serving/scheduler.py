@@ -27,6 +27,11 @@ skipping pays:
   walk the page tables in the CUDA kernel ``kernels/paged_attention``
   (on CPU tensors its plain version) instead of gathering each slot's
   pages into a dense view.
+* **Log2-quantized KV pages** (``kv_quant=True``) — the pool stores each
+  row as ``kv_bits``-bit log2 wire codes under a per-(page, head)
+  power-of-two scale, each slot's two newest pages also dense in a tail
+  ring; decode reads go through the quantized kernel (``attn_kernel``) or
+  the dequantizing gather.
 
 Where the reference compiles a tick into one ``lax.scan``, the port runs a
 Python loop of ``tick_steps`` device steps with no host synchronisation
@@ -34,8 +39,7 @@ inside; tokens and per-step traffic fractions come to the host once per
 tick.  Host state (slots, page tables, the queue) is numpy, as in the
 reference.  Not ported: the deprecated keyword-argument constructor,
 ``compile_stats`` / ``audit_programs`` (JAX compile concepts), ``mesh=`` /
-``mesh_spec``, ``kv_quant`` (the log2-quantized page pool) and SSM state
-snapshots; ``generate_cache_size`` is accepted and has no effect (the port
+``mesh_spec`` and SSM state snapshots; ``generate_cache_size`` is accepted and has no effect (the port
 compiles no programs).
 """
 
@@ -50,6 +54,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.logquant import dequantize_page_codes
+from repro_torch.models.attention import _quant_paged_write
 from repro_torch.models.model import (ModelConfig, init_caches,
                                       init_paged_pool)
 from repro_torch.serving import engine
@@ -150,10 +156,6 @@ class ServeScheduler:
             raise NotImplementedError(
                 f"mesh_spec={config.mesh_spec!r}: the port serves one card; "
                 f"multi-device serving is not ported yet")
-        if config.kv_quant:
-            raise NotImplementedError(
-                "kv_quant=True: the log2-quantized page pool is not ported "
-                "yet")
         dev = resolve_device(device)
         if params["embed"].device.type != dev.type:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -165,6 +167,12 @@ class ServeScheduler:
             # dispatches through models.attention
             cfg = cfg.replace(paged_attn_kernel=config.attn_kernel,
                               paged_attn_splits=config.attn_splits)
+        if config.kv_quant:
+            # so does the quantized pool: init_paged_pool builds the codes,
+            # scales and tail rings, models.attention quantizes on write
+            cfg = cfg.replace(kv_quant=True, kv_bits=config.kv_bits)
+        self.kv_quant = config.kv_quant
+        self.kv_bits = config.kv_bits
         self.cfg = cfg
         self.params = params
         self.max_slots = max_slots = config.max_slots
@@ -250,6 +258,9 @@ class ServeScheduler:
             page = torch.where(valid, row[pos // pl], TRASH_PAGE)
             off = torch.where(valid, pos % pl, 0)
             for c_pool, c_slot in layers:
+                if self.kv_quant:
+                    self._quant_write(c_pool, c_slot, i, true_len, row)
+                    continue
                 for k in ("k", "v"):
                     c_pool[k][:, page, off] = c_slot[k][:, 0].to(
                         c_pool[k].dtype)
@@ -259,6 +270,38 @@ class ServeScheduler:
                     c_pool[k][:, i] = c_slot[k][:, 0].to(c_pool[k].dtype)
         self._pool["length"][i] = true_len
         self._logits[i] = slot_logits[0].to(self._logits.dtype)
+
+    def _quant_write(self, c_pool, c_slot, i: int, true_len: int,
+                     row: torch.Tensor) -> None:
+        """Quantize a prefilled dense slab into slot ``i``'s pages, their
+        scales and its tail ring: per layer, the pool write of a
+        ``true_len``-token chunk at position 0 (pad rows to the trash page
+        and the junk bin)."""
+        pos = torch.arange(self.max_len, device=self.device)[None]
+        start = torch.zeros((1,), dtype=torch.int32, device=self.device)
+        for r in range(self.cfg.repeats):
+            for k in ("k", "v"):
+                _quant_paged_write(
+                    c_pool[f"{k}_codes"][r], c_pool[f"{k}_scale"][r],
+                    c_pool[f"{k}_tail"][r, i:i + 1], row[None], c_slot[k][r],
+                    pos, pos < true_len, start, true_len, self.kv_bits)
+
+    def _restore_tail(self, i: int, hit_len: int) -> None:
+        """Seed slot ``i``'s tail ring from the prefix hit's newest page
+        (the table row already names it; the ring's rows are the previous
+        occupant's): its dequantized rows are what every read of those
+        positions would decode from the pool."""
+        pl = self.page_len
+        tb = max(hit_len - 1, 0) // pl
+        page = int(self._table[i, tb])
+        half = (tb % 2) * pl
+        for c in self._pool["layers"]:
+            for k in ("k", "v"):
+                tail = c[f"{k}_tail"]
+                tail[:, i, half:half + pl] = dequantize_page_codes(
+                    c[f"{k}_codes"][:, page],
+                    c[f"{k}_scale"][:, page][:, None, :, None], self.kv_bits,
+                    tail.dtype)
 
     def _table_dev(self):
         return (self._dev(self._table),) if self.paged else ()
@@ -298,9 +341,13 @@ class ServeScheduler:
         return torch.zeros((2,), dtype=torch.float32, device=self.device)
 
     def _cow(self, src: int, dst: int) -> None:
-        """Copy page ``src`` into page ``dst`` in every layer's K and V."""
+        """Copy page ``src`` into page ``dst`` in every layer's K and V (a
+        quantized page's codes and scale together: codes mean nothing under
+        another page's scale; the per-slot tail rings are not paged)."""
+        keys = (("k_codes", "v_codes", "k_scale", "v_scale")
+                if self.kv_quant else ("k", "v"))
         for c in self._pool["layers"]:
-            for k in ("k", "v"):
+            for k in keys:
                 c[k][:, dst] = c[k][:, src]
 
     # ------------------------------------------------------------------ API
@@ -606,6 +653,8 @@ class ServeScheduler:
             # the slot resumes at the hit boundary and ingests only the
             # suffix through the chunk path
             self._pool["length"][slot_idx] = hit.length
+            if self.kv_quant:
+                self._restore_tail(slot_idx, hit.length)
             slot = _Slot(req=req, admitted_tick=self._tick_count,
                          phase="prefill", prefill_pos=hit.length,
                          hit_len=hit.length)

@@ -2,7 +2,10 @@
 K1 (LOG2 quantizer) and K2 (bit-plane GEMM) bit-equal, K3 (paged-attention
 decode) within the reference's tolerances (f32 ``rtol=2e-5, atol=2e-6``;
 bf16 ``atol=2e-2`` on the merged output), with trash-page poison bitwise
-invisible on live rows.
+invisible on live rows, and K4 (paged-attention decode over the
+log2-quantized pool) within f32 ``rtol=2e-5, atol=2e-6`` for q in f32 and
+bf16 (both widen q and keep ``p`` in f32), with trash-page codes and
+scales and the tail ring's dead rows bitwise invisible.
 
 Every test here is marked ``cuda`` and skips on a host without an NVIDIA
 GPU.  The file imports no JAX, so it runs where the card is:
@@ -16,7 +19,9 @@ import pytest
 import torch
 
 from repro_torch.core.bitplane import to_bitplanes
-from repro_torch.core.logquant import LogQuantized, log2_quantize
+from repro_torch.core.logquant import (LogQuantized, code_dtype,
+                                      log2_quantize, quantize_page_codes,
+                                      scale_exponent)
 from repro_torch.core.shiftadd import shiftadd_matmul_bitplane
 from repro_torch.core.wquant import quantize_weights
 from repro_torch.kernels.bitplane_matmul import ops as bm_ops
@@ -193,3 +198,110 @@ def test_paged_attention_refuses_mixed_dtypes_and_views(cuda):
         pa_ops.paged_attention(qg.to(torch.bfloat16), k, v, table, lens, 1)
     with pytest.raises(ValueError, match="contiguous"):
         pa_ops.paged_attention(qg, k, v, table.t().contiguous().t(), lens, 1)
+
+
+def _quant_case(page_len, nb, g, r, d, lengths, n_bits, q_dtype, seed,
+                garbage, device):
+    """A quantized pool laid out as the scheduler lays it out (codes under
+    each page's first-row scale), a tail ring whose active half holds each
+    row's newest page exactly; the trash page's codes and scales (up to
+    +-127), the ring's other rows and its junk bin are garbage drawn from
+    ``garbage``."""
+    gen = torch.Generator().manual_seed(seed)
+    b = len(lengths)
+    n_pages = 1 + b * nb
+    k = torch.randn((n_pages, page_len, g, d), generator=gen)
+    v = torch.randn((n_pages, page_len, g, d), generator=gen)
+    table = torch.from_numpy(pa_ops.make_page_table(lengths, nb, page_len))
+    q = torch.randn((b, 1, g * r, d), generator=gen).to(q_dtype)
+    pools = []
+    junk = torch.Generator().manual_seed(1000 + garbage)
+    for x in (k, v):
+        se = scale_exponent(x[:, 0], dim=-1)                   # (P, G)
+        codes = quantize_page_codes(x, se[:, None, :, None], n_bits)
+        lim = 256 if n_bits >= 8 else 128
+        codes[0] = torch.randint(-lim, lim, codes[0].shape, generator=junk
+                                 ).to(codes.dtype)
+        se[0] = torch.randint(-127, 128, se[0].shape, generator=junk)
+        tail = torch.randn((b, 2 * page_len + 1, g, d), generator=junk) * 1e3
+        for i, n in enumerate(lengths):
+            tb = max(n - 1, 0) // page_len
+            if table[i, tb]:
+                half = (tb % 2) * page_len
+                tail[i, half:half + page_len] = x[table[i, tb]]
+        pools.append((codes, se, tail))
+    (kc, ks, kt), (vc, vs, vt) = pools
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    return tuple(t.to(device) for t in (q, kc, ks, vc, vs, kt, vt, table,
+                                        lens))
+
+
+@pytest.mark.parametrize("page_len,nb", [(1, 4), (4, 4), (8, 3), (16, 5)])
+@pytest.mark.parametrize("g,r", [(1, 1), (2, 2), (1, 3), (3, 3)])
+@pytest.mark.parametrize("d", [8, 64])
+@pytest.mark.parametrize("n_bits", [2, 4, 8])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_quant_kernel_matches_plain(cuda, page_len, nb, g, r,
+                                                    d, n_bits, q_dtype):
+    q, kc, ks, vc, vs, _, _, table, lens = _quant_case(
+        page_len, nb, g, r, d, _lengths(page_len, nb), n_bits, q_dtype,
+        page_len + g + r + d + n_bits, 0, cuda)
+    assert kc.dtype == code_dtype(n_bits)
+    b = q.shape[0]
+    qg = q.reshape(b, g, r, d)
+    live = (lens > 0).cpu()
+    for splits in (1, 2, 3, 4):
+        pt = torch.nn.functional.pad(table, (0, (-nb) % splits))
+        before = pa_ops.paged_attention_quant.launches
+        o, m, l = pa_ops.paged_attention_quant(qg, kc, ks, vc, vs, pt, lens,
+                                               n_bits, splits)
+        torch.cuda.synchronize()
+        assert pa_ops.paged_attention_quant.launches == before + 1
+        po, pm, pl = pa_ops.paged_attention_quant_plain(
+            qg, kc, ks, vc, vs, pt, lens, n_bits, splits)
+        assert torch.equal(m <= pa_ops.NEG_INF / 2, pm <= pa_ops.NEG_INF / 2)
+        for a, e in ((o, po), (m, pm), (l, pl)):
+            torch.testing.assert_close(a, e, rtol=2e-5, atol=2e-6)
+        out = pa_ops.merge_split_softmax(m, l, o, axis=2).cpu()
+        ref = pa_ops.merge_split_softmax(pm, pl, po, axis=2).cpu()
+        assert not torch.isnan(out).any()
+        torch.testing.assert_close(out[live], ref[live], rtol=2e-5,
+                                   atol=2e-6)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+@pytest.mark.parametrize("n_bits", [2, 4, 8])
+def test_paged_attention_quant_garbage_invisible(cuda, splits, n_bits):
+    """Through ``paged_decode_attention_quant`` (floored lengths in K4,
+    the newest page from the ring): live rows bitwise the same whatever
+    the garbage, no NaN, and within f32 tolerance of the host's plain
+    path on the same inputs."""
+    lengths = [0, 1, 15, 16, 17, 48]
+    live = torch.tensor(lengths) > 0
+    outs = []
+    for garbage in (0, 1, 2):
+        args = _quant_case(16, 4, 3, 3, 64, lengths, n_bits, torch.bfloat16,
+                           5, garbage, cuda)
+        out = pa_ops.paged_decode_attention_quant(
+            *args, n_bits=n_bits, splits=splits).cpu()
+        assert not torch.isnan(out.float()).any()
+        outs.append(out)
+    for out in outs[1:]:
+        assert torch.equal(out[live], outs[0][live])
+    host = pa_ops.paged_decode_attention_quant(
+        *(t.cpu() for t in args), n_bits=n_bits, splits=splits)
+    torch.testing.assert_close(outs[-1][live].float(), host[live].float(),
+                               rtol=0.0, atol=2e-2)
+
+
+def test_paged_attention_quant_refuses_bad_inputs(cuda):
+    q, kc, ks, vc, vs, _, _, table, lens = _quant_case(
+        4, 4, 1, 1, 8, [3, 5], 4, torch.float32, 0, 0, cuda)
+    qg = q.reshape(2, 1, 1, 8)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        pa_ops.paged_attention_quant(qg.half(), kc, ks, vc, vs, table, lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa_ops.paged_attention_quant(qg, kc, ks, vc, vs,
+                                     table.t().contiguous().t(), lens)
+    with pytest.raises(ValueError, match="one device"):
+        pa_ops.paged_attention_quant(qg, kc, ks.cpu(), vc, vs, table, lens)

@@ -121,14 +121,21 @@ def test_from_json_rejections_equal(text):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mesh_spec="2x2"), "mesh_spec"),
-    (dict(paged=True, max_len=64, buckets=(8,), page_len=8, kv_quant=True),
-     "kv_quant"),
+    pytest.param(dict(mesh_spec="2x2"), "mesh_spec", id="kw0-mesh_spec"),
+    # served since the port's third slice: built, no longer refused
+    pytest.param(dict(paged=True, max_len=64, buckets=(8,), page_len=8,
+                      kv_quant=True), None, id="kw1-kv_quant"),
 ])
 def test_scheduler_refuses_later_slices(kw, match):
+    """The scheduler refuses what a later slice of the port brings (a
+    mesh) and builds what an earlier one brought (the quantized pool)."""
     cfg = get_smoke("smollm-135m").replace(dtype=torch.float32)
     params = init_params(cfg, generator=torch.Generator().manual_seed(0),
                          device="cpu")
+    if match is None:
+        sched = ServeScheduler(cfg, params, ServeConfig(**kw), device="cpu")
+        assert "k_codes" in sched._pool["layers"][0]
+        return
     with pytest.raises(NotImplementedError, match=match):
         ServeScheduler(cfg, params, ServeConfig(**kw), device="cpu")
 
