@@ -30,11 +30,14 @@ Phases, in order; any failure exits non-zero before the result line:
    the bf16 ``torch.matmul`` of the same shapes as context;
 6. K3, the paged-attention decode, against its plain version on the card:
    page_len {1, 4, 8} x (G, R) {(1,1), (2,2), (1,3)} x D {8, 16} plus
-   smollm-135m's (3, 3, 64) at page_len 16, splits 1..4, f32 and bf16,
-   at the reference's tolerances (f32 ``rtol=2e-5, atol=2e-6``; bf16
-   ``atol=2e-2``); trash-page poison of +-1e4 bitwise invisible on live
-   rows, length-0 rows finite; ``gather_traffic_counts`` on RAGGED512
-   exactly (57, 128);
+   smollm-135m's (3, 3, 64) at page_len 16, and the serving path's
+   geometry (page_len 16, 32 table columns, lengths 512..0, so that every
+   warp of a block walks several pages) at (G, R, D) (3, 3, 64), (3, 3,
+   128) and (1, 8, 64), splits 1..4, f32 and bf16, at the reference's
+   tolerances (f32 ``rtol=2e-5, atol=2e-6``; bf16 ``atol=2e-2``);
+   trash-page poison of +-1e4 bitwise invisible on live rows, also at the
+   serving geometry, length-0 rows finite; ``gather_traffic_counts`` on
+   RAGGED512 exactly (57, 128);
 7. the continuous-batching scheduler (``ServeScheduler``) serving
    full-width smollm-135m (random weights from seed 0) on a paged pool
    with the radix prefix cache: 8 slots, max_len 512, buckets 16..128,
@@ -57,10 +60,12 @@ Phases, in order; any failure exits non-zero before the result line:
    tables;
 8. K4, the paged-attention decode over the log2-quantized pool, against
    its plain version on the card: phase 6's geometries and boundary
-   lengths, n_bits {2, 4, 8}, q in f32 and bf16, splits 1..4, within f32
-   ``rtol=2e-5, atol=2e-6``, with random trash-page codes and scales (up
-   to +-127) and a garbage tail ring bitwise invisible on live rows
-   through ``paged_decode_attention_quant``, and no NaN;
+   lengths, the serving geometry included, n_bits {2, 4, 8}, q in f32 and
+   bf16, splits 1..4, within f32 ``rtol=2e-5, atol=2e-6``, with random
+   trash-page codes and scales (up to +-127) and a garbage tail ring
+   bitwise invisible on live rows through
+   ``paged_decode_attention_quant`` (also at the serving geometry), and
+   no NaN;
 9. the scheduler of phase 7 (model, trace, ``ServeConfig``) with
    ``kv_quant=True, kv_bits=4``.  In f32 with float projections, at the
    first 8 of the 30 layers (to keep the script's time), the
@@ -71,11 +76,14 @@ Phases, in order; any failure exits non-zero before the result line:
    step; every count is set to 0 just before it and read just after):
    tok/s, decode-only tok/s, hit rate, launches, the pool bytes per
    request of the reference bench's byte model; on the tick that touches
-   most pages, K4 against its plain version for all 30 layers, then its
+   most pages, K4 against its plain version for all 30 layers (rows of up
+   to 372 tokens: the partial o held divided by its split's l), then its
    time by CUDA-graph replay of the step's 30 launches beside its bound
    (the full code pages it reads, their scales, q and the partials over
-   3.35 TB/s), the plain version's time and, as context, dequantizing
-   the pool then ``_paged_gather`` + ``F.scaled_dot_product_attention``.
+   3.35 TB/s), the plain version's time and two contexts: gathering the
+   table's code pages and scales, dequantizing only those, then
+   ``F.scaled_dot_product_attention`` (``library_ms``), and dequantizing
+   the whole pool, then ``_paged_gather`` + the same SDPA.
 
 Prints a ``kernels:`` line, the JSON kernel table and, last, the result
 line ``{"ok": true, "device": {...}}``.  It imports nothing of JAX and
@@ -105,6 +113,11 @@ SERVE = dict(max_slots=8, max_len=512, buckets=(16, 32, 64, 128),
 SERVE_NEW = 32
 KV_BITS = 4
 F32_KVQ_LAYERS = 8                  # depth of phase 9's f32 comparison
+# phases 6 and 8 at the serving path's geometry (page_len 16, 32 table
+# columns): rows long enough that every warp of a block walks several
+# pages, at smollm-135m's (G, R, D) and at D = 128 and R = 8
+LONG_LENGTHS = [512, 300, 64, 33, 17, 16, 1, 0]
+LONG_GEOS = [(3, 3, 64), (3, 3, 128), (1, 8, 64)]
 
 
 def fail(msg: str) -> None:
@@ -551,6 +564,7 @@ def main() -> None:
         "launches": k4["launches"], "max_abs_err": k4_err, "ms": k4["ms"],
         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],
+        "context_whole_pool_ms": k4["context_whole_pool_ms"],
         "scope": k4["scope"], "eager_ms": k4["eager_ms"]})
     print('kernels: ["log2quant", "bitplane_matmul", "paged_attention", '
           '"paged_attention_quant"]')
@@ -591,7 +605,25 @@ def paged_case(torch, dev, page_len, nb, g, r, d, lengths, dtype, poison,
                                         device=dev))
 
 
-def k3_against_plain(torch, pa_ops, qg, k, v, table, lens, splits, what):
+def partials(got, want, normalized):
+    """(name, kernel, plain) for each f32 partial to hold at F32_TOL: m, l
+    and o, or o divided by its split's l (``normalized``, rows of hundreds
+    of tokens: there the unnormalised o's own f32 rounding exceeds atol,
+    the plain version's by up to 4.7e-6 at D = 64 and 1.8e-5 at D = 128
+    against exact f64 partials, so only a kernel that sums in its exact
+    order could meet it)."""
+    from repro_torch.kernels.paged_attention.ops import NEG_INF
+
+    (o, m, l), (po, pm, pl) = got, want
+    if not normalized:
+        return (("o", o, po), ("m", m, pm), ("l", l, pl))
+    held = pm > NEG_INF / 2
+    return (("o / l", o[held] / l[held][:, None],
+             po[held] / pl[held][:, None]), ("m", m, pm), ("l", l, pl))
+
+
+def k3_against_plain(torch, pa_ops, qg, k, v, table, lens, splits, what,
+                     normalized=False):
     """Kernel and plain partials of one call; returns the merged outputs'
     max |diff| (fails outside the dtype's tolerance)."""
     nb = table.shape[1]
@@ -603,7 +635,7 @@ def k3_against_plain(torch, pa_ops, qg, k, v, table, lens, splits, what):
           f"K3 ({what}): the splits holding a valid token differ")
     f32 = qg.dtype == torch.float32
     if f32:
-        for a, e, nm in ((o, po, "o"), (m, pm, "m"), (l, pl, "l")):
+        for nm, a, e in partials((o, m, l), (po, pm, pl), normalized):
             check(close(torch, a, e, F32_TOL) >= 0,
                   f"K3 ({what}): partial {nm} outside f32 tolerance")
     out = pa_ops.merge_split_softmax(m, l, o, axis=2)
@@ -635,17 +667,32 @@ def phase6(torch, dev, pa_ops) -> float:
                     f"page_len {pl} G {g} R {r} D {d} {dtype} splits "
                     f"{splits}"))
                 n += 1
+    for i, (g, r, d) in enumerate(LONG_GEOS):
+        for dtype in errs:
+            q, k, v, table, lens = paged_case(torch, dev, 16, 32, g, r, d,
+                                              LONG_LENGTHS, dtype, 1e4,
+                                              200 + i)
+            for splits in (1, 2, 3, 4):
+                errs[dtype] = max(errs[dtype], k3_against_plain(
+                    torch, pa_ops, q, k, v, table, lens, splits,
+                    f"long rows G {g} R {r} D {d} {dtype} splits {splits}",
+                    normalized=True))
+                n += 1
     poisoned = 0
+    # (page_len, nb, G, R, D, lengths, splits, seed): the boundary rows, then
+    # the serving geometry's long rows
+    poison_cases = [(pl, 4, g, r, d, [0, 1, 3, 4, 5, 16, 4 * pl], (1, 2, 3),
+                     11) for pl, g, r, d in ((4, 2, 2, 8), (16, 3, 3, 64))]
+    poison_cases.append((16, 32, 3, 3, 64, LONG_LENGTHS, (1, 2, 3, 4), 12))
     for dtype in errs:
-        for pl, g, r, d in ((4, 2, 2, 8), (16, 3, 3, 64)):
-            lengths = [0, 1, 3, 4, 5, 16, 4 * pl]
+        for pl, nb, g, r, d, lengths, split_set, seed in poison_cases:
             live = torch.tensor(lengths, device=dev) > 0
-            for splits in (1, 2, 3):
+            for splits in split_set:
                 outs = []
                 for poison in (0.0, 1e4, -1e4):
                     q, k, v, table, lens = paged_case(
-                        torch, dev, pl, 4, g, r, d, lengths, dtype, poison,
-                        11)
+                        torch, dev, pl, nb, g, r, d, lengths, dtype, poison,
+                        seed)
                     out = pa_ops.paged_decode_attention(
                         q.reshape(len(lengths), 1, g * r, d), k, v, table,
                         lens, splits=splits)
@@ -655,7 +702,7 @@ def phase6(torch, dev, pa_ops) -> float:
                 for out in outs[1:]:
                     check(torch.equal(out[live], outs[0][live]),
                           f"K3: trash poison reached a live row ({dtype}, "
-                          f"page_len {pl}, splits {splits})")
+                          f"page_len {pl}, nb {nb}, splits {splits})")
                 poisoned += 1
     geo = pa_ops.RAGGED512
     rag = pa_ops.make_page_table(geo["lengths"], geo["nb"], geo["page_len"])
@@ -1021,7 +1068,7 @@ def quant_case(torch, dev, page_len, nb, g, r, d, lengths, n_bits, q_dtype,
 
 
 def k4_against_plain(torch, pa_ops, qg, kc, ks, vc, vs, table, lens, n_bits,
-                     splits, what):
+                     splits, what, normalized=False):
     """K4 and plain partials of one call within f32 tolerance, merged
     outputs too on live rows, no NaN; returns the merged max |diff|."""
     nb = table.shape[1]
@@ -1033,7 +1080,7 @@ def k4_against_plain(torch, pa_ops, qg, kc, ks, vc, vs, table, lens, n_bits,
     torch.cuda.synchronize()
     check(torch.equal(m <= pa_ops.NEG_INF / 2, pm <= pa_ops.NEG_INF / 2),
           f"K4 ({what}): the splits holding a valid token differ")
-    for a, e, nm in ((o, po, "o"), (m, pm, "m"), (l, pl, "l")):
+    for nm, a, e in partials((o, m, l), (po, pm, pl), normalized):
         check(close(torch, a, e, F32_TOL) >= 0,
               f"K4 ({what}): partial {nm} outside f32 tolerance")
     out = pa_ops.merge_split_softmax(m, l, o, axis=2)
@@ -1066,17 +1113,36 @@ def phase8(torch, dev, pa_ops) -> float:
                         n_bits, splits, f"page_len {pl} G {g} R {r} D {d} "
                         f"n_bits {n_bits} {dtype} splits {splits}"))
                     n += 1
+    for i, (g, r, d) in enumerate(LONG_GEOS):
+        for n_bits in (2, 4, 8):
+            for dtype in (torch.float32, torch.bfloat16):
+                q, kc, ks, vc, vs, _, _, table, lens = quant_case(
+                    torch, dev, 16, 32, g, r, d, LONG_LENGTHS, n_bits,
+                    dtype, 300 + i, 0)
+                for splits in (1, 2, 3, 4):
+                    err = max(err, k4_against_plain(
+                        torch, pa_ops, q, kc, ks, vc, vs, table, lens,
+                        n_bits, splits, f"long rows G {g} R {r} D {d} "
+                        f"n_bits {n_bits} {dtype} splits {splits}",
+                        normalized=True))
+                    n += 1
     garbage_cases = 0
+    # (page_len, nb, G, R, D, lengths, q dtypes, seed): the boundary rows,
+    # then the serving geometry's long rows
+    both = (torch.float32, torch.bfloat16)
+    garbage_geos = [(pl, 4, g, r, d, [0, 1, pl - 1, pl, pl + 1, 3 * pl], both,
+                     7) for pl, g, r, d in ((4, 2, 2, 8), (16, 3, 3, 64))]
+    garbage_geos.append((16, 32, 3, 3, 64, LONG_LENGTHS, (torch.bfloat16,),
+                         8))
     for n_bits in (2, 4, 8):
-        for dtype in (torch.float32, torch.bfloat16):
-            for pl, g, r, d in ((4, 2, 2, 8), (16, 3, 3, 64)):
-                lengths = [0, 1, pl - 1, pl, pl + 1, 3 * pl]
-                live = torch.tensor(lengths, device=dev) > 0
+        for pl, nb, g, r, d, lengths, dtypes, seed in garbage_geos:
+            live = torch.tensor(lengths, device=dev) > 0
+            for dtype in dtypes:
                 for splits in (1, 2, 3, 4):
                     outs = []
                     for garbage in (0, 1, 2):
-                        q, *rest = quant_case(torch, dev, pl, 4, g, r, d,
-                                              lengths, n_bits, dtype, 7,
+                        q, *rest = quant_case(torch, dev, pl, nb, g, r, d,
+                                              lengths, n_bits, dtype, seed,
                                               garbage)
                         out = pa_ops.paged_decode_attention_quant(
                             q.reshape(len(lengths), 1, g * r, d), *rest,
@@ -1087,8 +1153,8 @@ def phase8(torch, dev, pa_ops) -> float:
                     for out in outs[1:]:
                         check(torch.equal(out[live], outs[0][live]),
                               f"K4: garbage reached a live row (n_bits "
-                              f"{n_bits}, {dtype}, page_len {pl}, splits "
-                              f"{splits})")
+                              f"{n_bits}, {dtype}, page_len {pl}, nb {nb}, "
+                              f"splits {splits})")
                     garbage_cases += 1
     print(f"phase 8: K4 within f32 tolerance of its plain version in {n} "
           f"cases (n_bits 2/4/8, q f32/bf16, splits 1-4, max |diff| "
@@ -1277,9 +1343,12 @@ def phase9(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
              best["v_scale"][i]) for i in range(cfg.n_layers)]
     err = 0.0
     for layer in range(cfg.n_layers):
+        # rows of up to 372 tokens: o held divided by its split's l, as
+        # phase 8's long rows are (see partials())
         err = max(err, k4_against_plain(
             torch, pa_ops, qs[layer], *pool[layer], table, kern_lens,
-            KV_BITS, splits, f"full-width tick, layer {layer}"))
+            KV_BITS, splits, f"full-width tick, layer {layer}",
+            normalized=True))
     print(f"  tick with {best['touched']} full pages (lengths "
           f"{lens.tolist()}): K4 within f32 tolerance of its plain version "
           f"on all {cfg.n_layers} layers (max |diff| {err:.3e})")
@@ -1297,7 +1366,25 @@ def phase9(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
     valid = (torch.arange(nb * pl, device=dev)[None]
              < kern_lens[:, None])[:, None, None, :]      # (B, 1, 1, S)
 
+    tl = table.long()
+
     def library_step():
+        # the fair context: gather the table's code pages and scales, then
+        # dequantize only those, then SDPA over the gathered view
+        for layer in range(cfg.n_layers):
+            kc, ks, vc, vs = pool[layer]
+            kp = dequantize_page_codes(kc[tl], ks[tl][:, :, None, :, None],
+                                       KV_BITS, cfg.dtype)
+            vp = dequantize_page_codes(vc[tl], vs[tl][:, :, None, :, None],
+                                       KV_BITS, cfg.dtype)
+            kg = kp.reshape(b, nb * pl, g, d).transpose(1, 2)
+            vg = vp.reshape(b, nb * pl, g, d).transpose(1, 2)
+            torch.nn.functional.scaled_dot_product_attention(
+                qs[layer].reshape(b, g * r, 1, d), kg, vg, attn_mask=valid,
+                enable_gqa=True)
+
+    def whole_pool_step():
+        # PR 15's context: dequantize the whole pool, then gather + SDPA
         for layer in range(cfg.n_layers):
             kc, ks, vc, vs = pool[layer]
             kp = dequantize_page_codes(kc, ks[:, None, :, None], KV_BITS,
@@ -1312,6 +1399,7 @@ def phase9(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
 
     ms, plain_ms = graph_ms(torch, k4_step), graph_ms(torch, plain_step)
     lib_ms = graph_ms(torch, library_step)
+    pool_ms = graph_ms(torch, whole_pool_step)
     eager = eager_ms(torch, k4_step)
     esz = torch.tensor([], dtype=cfg.dtype).element_size()
     csz = best["k_codes"].element_size()
@@ -1329,13 +1417,16 @@ def phase9(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
           f"{max(t_bytes, t_ops):.5f} ms ({step_bytes} bytes: {full} full "
           f"pages x {page_bytes} B of codes and scales per layer + q + "
           f"partials); plain {plain_ms:.4f} ms; issued eagerly {eager:.4f} "
-          f"ms; context: dequantize the pool, then _paged_gather + "
-          f"scaled_dot_product_attention {lib_ms:.4f} ms (the port never "
-          f"calls it)")
+          f"ms; context (the port never calls it): gather the table's "
+          f"code pages and scales, dequantize those, then "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms; dequantize the "
+          f"whole pool, then _paged_gather + scaled_dot_product_attention "
+          f"{pool_ms:.4f} ms")
     return dict(launches=launches["paged_attention_quant"], ms=ms,
                 plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=lib_ms, eager_ms=eager, max_abs_err=err,
+                library_ms=lib_ms, context_whole_pool_ms=pool_ms,
+                eager_ms=eager, max_abs_err=err,
                 scope=f"one decode step: {cfg.n_layers} launches, B={b}, "
                       f"{full} full pages, splits {splits}, n_bits "
                       f"{KV_BITS}")

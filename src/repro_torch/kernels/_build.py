@@ -3,8 +3,9 @@
 
 Every ``kernels/*/csrc/*.cu`` becomes its own shared library with a plain C
 interface, compiled for ``sm_90a`` into ``kernels/build/`` (git-ignored).
-A library's file name carries a hash of its source and the flags, so a
-changed source rebuilds and an unchanged one loads as is.  All missing
+A library's file name carries a hash of its source, of every header
+(``*.cuh``) in its ``csrc/`` directory and of the flags, so a changed
+source or header rebuilds and an unchanged one loads as is.  All missing
 libraries are compiled at once, one ``nvcc`` process per source, started
 together.  A failed build raises with nvcc's stderr.
 """
@@ -47,6 +48,9 @@ def find_nvcc() -> str:
 
 def library_path(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 

@@ -1,5 +1,5 @@
 // Paged-attention decode over the log2-quantized KV page pool, split-KV
-// partials (GQA), for Hopper, sm_90a.
+// partials (GQA), for Hopper, sm_90a (K4).
 //
 // Replaces the Pallas kernel src/repro/kernels/paged_attention/kernel.py
 // (_paged_attn_quant_kernel, launched by paged_attention_quant_kernel and
@@ -15,53 +15,43 @@
 //   l   = l * corr + sum p;  acc = acc * corr + p . v
 // with q widened to f32, m, l, acc and p in f32 (unlike the dense kernel, p
 // is not rounded to a cache dtype), and the unnormalised (o = acc, m, l)
-// partials written out.  The explicit zero of masked p matters: garbage
-// codes decode to up to 2^127, and p = exp(0) = 1 on a split that has seen
-// no valid token yet would overflow acc to inf, which the merge's zero
-// weight turns into NaN.  The wrapper passes lengths floored to full pages
-// and merges the newest page from the dense tail ring as one more split.
+// partials written out.  The page walk is paged_walk.cuh's, shared with
+// the dense kernel; this file gives it a loader that decodes int8 (n_bits
+// 2..7) or int16 (n_bits 8) codes under the page's scale.  The explicit
+// zero of masked p matters: garbage codes decode to up to 2^127, and p =
+// exp(0) = 1 on a warp that has seen no valid token yet would overflow acc
+// to inf, which the merge's zero weight turns into NaN.  The wrapper passes
+// lengths floored to full pages and merges the newest page from the dense
+// tail ring as one more split.
 //
 // Inputs: q (B, G, R, D) f32 or bf16; code pools (P, page_len, G, D) int8
-// (n_bits 2..7) or int16 (n_bits 8); scale pools (P, G) int32; table (B, NB)
-// int32 with page 0 the trash page and NB a multiple of splits; lengths
-// (B,) int32.  Outputs: o (B, G, splits, R, D) f32, m and l (B, G, splits,
-// R) f32.
+// or int16; scale pools (P, G) int32; table (B, NB) int32 with page 0 the
+// trash page and NB a multiple of splits; lengths (B,) int32.  Outputs: o
+// (B, G, splits, R, D) f32, m and l (B, G, splits, R) f32.
 //
 // Pages wholly past a row's length are not loaded, so the kernel reads
-// exactly the full pages the floored length covers.  A split with no valid
-// token keeps m = NEG_INF, l = 0, acc = 0, as the reference's does (its
-// masked p is zero too); the merge weighs it by 0.  Trash-page codes,
-// scales and the ring's dead rows reach no live row: a page the kernel
-// loads holds at least one valid position, so m' is finite, and masked p
-// is 0.
+// exactly the full pages the floored length covers.  A split (or a warp)
+// with no valid token keeps m = NEG_INF, l = 0, acc = 0, as the
+// reference's does; the merges weigh it by 0.  Trash-page codes, scales
+// and the ring's dead rows reach no live row.
 //
 // What bounds it on an H100: bytes, at decode, as for the dense kernel,
-// with 1-byte codes instead of 2-byte bf16 (2 bytes at 8 bits): per (b, g)
-// it reads the touched pages' K and V codes once, one scale each, and does
-// 4 * R * D flops per key.  At the serving path's sizes a launch moves
-// under a megabyte, so it is bound by latency in practice: each block
-// walks its pages one after another.  Design for a first, simple kernel,
-// the dense kernel's: one block of 128 threads per (b, g, split); each
-// page's page_len x D K and V tiles are dequantized while staged into
-// shared memory as f32 (the K tile with a padded row stride against bank
-// conflicts in the score loop); the R query rows' m, l and acc stay in
-// shared memory in f32.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// with 1-byte codes instead of 2-byte bf16 (2 bytes at 8 bits) and one
+// scale per page and head: per (b, g) it reads the touched pages' codes
+// once and does 4 * R * D flops per key.  At the serving path's sizes (30
+// launches per decode step, under a megabyte each) a launch costs its
+// launch latency plus the latency of the page loads and page math one warp
+// does one after another.  So paged_walk.cuh spreads the split's pages
+// over 16 warps, copies the next page's codes 16 bytes (16 codes at 4
+// bits; a D = 64 code row is 4 copies) per cp.async while the current
+// page's math runs, dequantizes each code as it is read from shared
+// memory, and does the softmax by warp shuffles.
+#include "paged_walk.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;
-
 enum QueryKind { kF32 = 0, kBF16 = 1 };
 enum CodeKind { kInt8 = 0, kInt16 = 1 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // sign * 2^clamp(exp + se, -126, 127), the sentinel to +0; the sum wraps
 // like the reference's int32 arithmetic (only garbage scales reach that)
@@ -76,119 +66,26 @@ __device__ __forceinline__ float dequant(int code, int se, int sentinel) {
   return __uint_as_float(bits);
 }
 
-template <typename Q, typename C>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_quant_kernel(const Q* __restrict__ q,
-                             const C* __restrict__ k_codes,
-                             const int* __restrict__ k_scale,
-                             const C* __restrict__ v_codes,
-                             const int* __restrict__ v_scale,
-                             const int* __restrict__ table,
-                             const int* __restrict__ lengths,
-                             float* __restrict__ o, float* __restrict__ m_out,
-                             float* __restrict__ l_out, int G, int R, int D,
-                             int page_len, int nb, int splits, int n_pages,
-                             int sentinel) {
-  extern __shared__ float smem[];
-  const int split = blockIdx.x;
-  const int g = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int bps = nb / splits;
-  const int kstride = D + 1;
-
-  float* qs = smem;                           // R * D
-  float* ks = qs + R * D;                     // page_len * (D + 1)
-  float* vs = ks + page_len * kstride;        // page_len * D
-  float* sc = vs + page_len * D;              // R * page_len
-  float* acc = sc + R * page_len;             // R * D
-  float* ms = acc + R * D;                    // R
-  float* ls = ms + R;                         // R
-  float* cs = ls + R;                         // R
-
-  const Q* qb = q + static_cast<size_t>(b * G + g) * R * D;
-  for (int i = tid; i < R * D; i += blockDim.x) {
-    qs[i] = to_f32(qb[i]);
-    acc[i] = 0.f;
+template <typename C>
+struct QuantLoader {
+  using Raw = C;
+  const C* k;
+  const C* v;
+  const int* k_scale;
+  const int* v_scale;
+  int sentinel;
+  __device__ __forceinline__ int2 scales(int page, int g, int G) const {
+    const size_t i = static_cast<size_t>(page) * G + g;
+    return make_int2(k_scale[i], v_scale[i]);
   }
-  for (int i = tid; i < R; i += blockDim.x) {
-    ms[i] = kNegInf;
-    ls[i] = 0.f;
+  __device__ __forceinline__ float k_at(C x, int2 s) const {
+    return dequant(x, s.x, sentinel);
   }
-
-  const int len = lengths[b];
-  const float scale = sqrtf(static_cast<float>(D));
-  const int live_pages = len > 0 ? (len + page_len - 1) / page_len : 0;
-  const int j0 = split * bps;
-  const int j1 = min(j0 + bps, live_pages);
-  const size_t row_stride = static_cast<size_t>(G) * D;
-  __syncthreads();
-
-  for (int j = j0; j < j1; ++j) {
-    int page = table[static_cast<size_t>(b) * nb + j];
-    page = min(max(page, 0), n_pages - 1);
-    const int kse = k_scale[static_cast<size_t>(page) * G + g];
-    const int vse = v_scale[static_cast<size_t>(page) * G + g];
-    const size_t base = static_cast<size_t>(page) * page_len * row_stride
-                        + static_cast<size_t>(g) * D;
-    for (int i = tid; i < page_len * D; i += blockDim.x) {
-      const int t = i / D;
-      const int d = i - t * D;
-      const size_t off = base + t * row_stride + d;
-      ks[t * kstride + d] = dequant(k_codes[off], kse, sentinel);
-      vs[i] = dequant(v_codes[off], vse, sentinel);
-    }
-    __syncthreads();
-
-    const int pos0 = j * page_len;
-    for (int i = tid; i < R * page_len; i += blockDim.x) {
-      const int r = i / page_len;
-      const int t = i - r * page_len;
-      const float* qr = qs + r * D;
-      const float* kt = ks + t * kstride;
-      float dot = 0.f;
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kt[d], dot);
-      sc[i] = (pos0 + t < len) ? dot / scale : kNegInf;
-    }
-    __syncthreads();
-
-    for (int r = tid; r < R; r += blockDim.x) {
-      float* sr = sc + r * page_len;
-      float mx = kNegInf;
-      for (int t = 0; t < page_len; ++t) mx = fmaxf(mx, sr[t]);
-      const float m_prev = ms[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = 0; t < page_len; ++t) {
-        const float p = (pos0 + t < len) ? expf(sr[t] - m_new) : 0.f;
-        sum += p;
-        sr[t] = p;
-      }
-      const float corr = expf(m_prev - m_new);
-      ls[r] = ls[r] * corr + sum;
-      cs[r] = corr;
-      ms[r] = m_new;
-    }
-    __syncthreads();
-
-    for (int i = tid; i < R * D; i += blockDim.x) {
-      const int r = i / D;
-      const int d = i - r * D;
-      const float* pr = sc + r * page_len;
-      float pv = 0.f;
-      for (int t = 0; t < page_len; ++t) pv = fmaf(pr[t], vs[t * D + d], pv);
-      acc[i] = acc[i] * cs[r] + pv;
-    }
-    __syncthreads();
+  __device__ __forceinline__ float v_at(C x, int2 s) const {
+    return dequant(x, s.y, sentinel);
   }
-
-  const size_t ob = (static_cast<size_t>(b * G + g) * splits + split) * R;
-  for (int i = tid; i < R * D; i += blockDim.x) o[ob * D + i] = acc[i];
-  for (int i = tid; i < R; i += blockDim.x) {
-    m_out[ob + i] = ms[i];
-    l_out[ob + i] = ls[i];
-  }
-}
+  __device__ __forceinline__ float round_p(float p) const { return p; }
+};
 
 template <typename Q, typename C>
 cudaError_t launch(const void* q, const void* kc, const int* ks,
@@ -196,22 +93,11 @@ cudaError_t launch(const void* q, const void* kc, const int* ks,
                    const int* lengths, float* o, float* m, float* l, int B,
                    int G, int R, int D, int page_len, int nb, int splits,
                    int n_pages, int sentinel, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (
-      static_cast<size_t>(R) * D * 2 + static_cast<size_t>(page_len) * (D + 1)
-      + static_cast<size_t>(page_len) * D
-      + static_cast<size_t>(R) * page_len + 3 * static_cast<size_t>(R));
-  if (smem > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        paged_attention_quant_kernel<Q, C>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (rc != cudaSuccess) return rc;
-  }
-  const dim3 grid(splits, G, B);
-  paged_attention_quant_kernel<Q, C><<<grid, kThreads, smem, stream>>>(
-      static_cast<const Q*>(q), static_cast<const C*>(kc), ks,
-      static_cast<const C*>(vc), vs, table, lengths, o, m, l, G, R, D,
-      page_len, nb, splits, n_pages, sentinel);
-  return cudaGetLastError();
+  const QuantLoader<C> ld{static_cast<const C*>(kc),
+                          static_cast<const C*>(vc), ks, vs, sentinel};
+  return paged_walk::launch_walk(static_cast<const Q*>(q), ld, table,
+                                 lengths, o, m, l, B, G, R, D, page_len, nb,
+                                 splits, n_pages, stream);
 }
 
 template <typename Q>

@@ -5,7 +5,10 @@ bf16 ``atol=2e-2`` on the merged output), with trash-page poison bitwise
 invisible on live rows, and K4 (paged-attention decode over the
 log2-quantized pool) within f32 ``rtol=2e-5, atol=2e-6`` for q in f32 and
 bf16 (both widen q and keep ``p`` in f32), with trash-page codes and
-scales and the tail ring's dead rows bitwise invisible.
+scales and the tail ring's dead rows bitwise invisible.  Both kernels are
+also held at the serving path's geometry (page_len 16, 32 table columns,
+rows up to 512 tokens, so every warp of a block walks several pages), and
+there at D = 128 and R = 8.
 
 Every test here is marked ``cuda`` and skips on a host without an NVIDIA
 GPU.  The file imports no JAX, so it runs where the card is:
@@ -200,6 +203,71 @@ def test_paged_attention_refuses_mixed_dtypes_and_views(cuda):
         pa_ops.paged_attention(qg, k, v, table.t().contiguous().t(), lens, 1)
 
 
+# the serving path's geometry (smollm-135m: page_len 16, G 3, R 3, D 64,
+# 32 table columns) with rows long enough to give each of a block's warps
+# several pages, plus D = 128 and R = 8 at the same lengths
+LONG_LENGTHS = [512, 300, 64, 33, 17, 16, 1, 0]
+LONG_GEOS = [(3, 3, 64), (3, 3, 128), (1, 8, 64)]
+
+
+def _assert_long_partials_close(got, want):
+    """f32 partials of rows up to 512 tokens at ``rtol=2e-5, atol=2e-6``:
+    m and l as they are, o divided by its split's l.  The unnormalised o
+    sums up to 512 products whose f32 rounding alone moves it by more than
+    atol: the plain version itself is up to 4.7e-6 (D = 64) and 1.8e-5 (D =
+    128) away from the exact f64 partials on these inputs, so only a
+    kernel that sums in its exact order could meet atol there; divided by
+    l, that error is about 40x smaller."""
+    (o, m, l), (po, pm, pl) = got, want
+    held = pm > pa_ops.NEG_INF / 2
+    torch.testing.assert_close(m, pm, rtol=2e-5, atol=2e-6)
+    torch.testing.assert_close(l, pl, rtol=2e-5, atol=2e-6)
+    torch.testing.assert_close(o[held] / l[held][:, None],
+                               po[held] / pl[held][:, None], rtol=2e-5,
+                               atol=2e-6)
+
+
+@pytest.mark.parametrize("g,r,d", LONG_GEOS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_long_rows_match_plain(cuda, g, r, d, dtype):
+    q, k, v, table, lens = _paged_case(16, 32, g, r, d, LONG_LENGTHS, dtype,
+                                       1e4, 3 + g + r + d, cuda)
+    b = q.shape[0]
+    qg = q.reshape(b, g, r, d)
+    live = (lens > 0).cpu()
+    for splits in (1, 2, 3, 4):
+        pt = torch.nn.functional.pad(table, (0, (-32) % splits))
+        o, m, l = pa_ops.paged_attention(qg, k, v, pt, lens, splits)
+        torch.cuda.synchronize()
+        po, pm, pl = pa_ops.paged_attention_plain(qg, k, v, pt, lens, splits)
+        assert torch.equal(m <= pa_ops.NEG_INF / 2, pm <= pa_ops.NEG_INF / 2)
+        if dtype == torch.float32:
+            _assert_long_partials_close((o, m, l), (po, pm, pl))
+        out = pa_ops.merge_split_softmax(m, l, o, axis=2).cpu()
+        ref = pa_ops.merge_split_softmax(pm, pl, po, axis=2).cpu()
+        assert torch.isfinite(out).all()
+        tol = (dict(rtol=2e-5, atol=2e-6) if dtype == torch.float32
+               else dict(rtol=0.0, atol=2e-2))
+        torch.testing.assert_close(out[live], ref[live], **tol)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_long_rows_poison_invisible(cuda, splits,
+                                                           dtype):
+    live = torch.tensor(LONG_LENGTHS) > 0
+    outs = []
+    for poison in (0.0, 1e4, -1e4):
+        q, k, v, table, lens = _paged_case(16, 32, 3, 3, 64, LONG_LENGTHS,
+                                           dtype, poison, 12, cuda)
+        out = pa_ops.paged_decode_attention(q, k, v, table, lens,
+                                            splits=splits).cpu()
+        assert torch.isfinite(out.float()).all()
+        outs.append(out)
+    for out in outs[1:]:
+        assert torch.equal(out[live], outs[0][live])
+
+
 def _quant_case(page_len, nb, g, r, d, lengths, n_bits, q_dtype, seed,
                 garbage, device):
     """A quantized pool laid out as the scheduler lays it out (codes under
@@ -292,6 +360,50 @@ def test_paged_attention_quant_garbage_invisible(cuda, splits, n_bits):
         *(t.cpu() for t in args), n_bits=n_bits, splits=splits)
     torch.testing.assert_close(outs[-1][live].float(), host[live].float(),
                                rtol=0.0, atol=2e-2)
+
+
+@pytest.mark.parametrize("g,r,d", LONG_GEOS)
+@pytest.mark.parametrize("n_bits", [2, 4, 8])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_quant_kernel_long_rows_match_plain(cuda, g, r, d,
+                                                            n_bits, q_dtype):
+    q, kc, ks, vc, vs, _, _, table, lens = _quant_case(
+        16, 32, g, r, d, LONG_LENGTHS, n_bits, q_dtype, 5 + g + r + d, 0,
+        cuda)
+    b = q.shape[0]
+    qg = q.reshape(b, g, r, d)
+    live = (lens > 0).cpu()
+    for splits in (1, 2, 3, 4):
+        pt = torch.nn.functional.pad(table, (0, (-32) % splits))
+        o, m, l = pa_ops.paged_attention_quant(qg, kc, ks, vc, vs, pt, lens,
+                                               n_bits, splits)
+        torch.cuda.synchronize()
+        po, pm, pl = pa_ops.paged_attention_quant_plain(
+            qg, kc, ks, vc, vs, pt, lens, n_bits, splits)
+        assert torch.equal(m <= pa_ops.NEG_INF / 2, pm <= pa_ops.NEG_INF / 2)
+        _assert_long_partials_close((o, m, l), (po, pm, pl))
+        out = pa_ops.merge_split_softmax(m, l, o, axis=2).cpu()
+        ref = pa_ops.merge_split_softmax(pm, pl, po, axis=2).cpu()
+        assert not torch.isnan(out).any()
+        torch.testing.assert_close(out[live], ref[live], rtol=2e-5,
+                                   atol=2e-6)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+@pytest.mark.parametrize("n_bits", [2, 4, 8])
+def test_paged_attention_quant_long_rows_garbage_invisible(cuda, splits,
+                                                           n_bits):
+    live = torch.tensor(LONG_LENGTHS) > 0
+    outs = []
+    for garbage in (0, 1, 2):
+        args = _quant_case(16, 32, 3, 3, 64, LONG_LENGTHS, n_bits,
+                           torch.bfloat16, 6, garbage, cuda)
+        out = pa_ops.paged_decode_attention_quant(
+            *args, n_bits=n_bits, splits=splits).cpu()
+        assert not torch.isnan(out.float()).any()
+        outs.append(out)
+    for out in outs[1:]:
+        assert torch.equal(out[live], outs[0][live])
 
 
 def test_paged_attention_quant_refuses_bad_inputs(cuda):

@@ -284,6 +284,27 @@ def test_build_command_targets_sm90a_from_repo_sources():
     assert path != _build.library_path(srcs["bitplane_matmul"])
 
 
+def test_library_path_follows_the_headers_beside_the_source(tmp_path):
+    """A source that includes a ``csrc/*.cuh`` gets a new library name
+    when the header changes, so a stale library is never loaded; editing
+    the source does it too, and an unchanged tree keeps its name."""
+    csrc = tmp_path / "walk" / "csrc"
+    csrc.mkdir(parents=True)
+    src, header = csrc / "k.cu", csrc / "walk.cuh"
+    src.write_text('#include "walk.cuh"\nextern "C" int f() { return W; }\n')
+    header.write_text("#define W 1\n")
+    first = _build.library_path(src)
+    assert first == _build.library_path(src)
+    assert first.parent == _build.BUILD_DIR and first.name.startswith("k-")
+    header.write_text("#define W 2\n")
+    second = _build.library_path(src)
+    assert second != first
+    (csrc / "more.cuh").write_text("// another header\n")
+    assert _build.library_path(src) != second
+    src.write_text(src.read_text() + "// edited\n")
+    assert _build.library_path(src) not in (first, second)
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build, "CUDA_NVCC", tmp_path / "nvcc")
