@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -11,23 +11,40 @@ Phases, in order; any failure exits non-zero before the result line:
 2. K1, the LOG2 quantizer, bit-equal to its plain version on the card: the
    main path's activation shapes in f32 and bf16 plus the special-value
    lattice, n_bits 2..8;
-3. K2, the plane-skipping bit-plane GEMM, bit-equal to its plain version
-   and to the direct-shift oracle on the card: every main-path (K, N) with
-   M in {1, 4, 256}, extreme exponents, cold activations and a fully
-   pruned tile;
+3. K2, the LOG2-quantize + plane-skipping bit-plane GEMM in one launch,
+   bit-equal to its plain version (``log2_quantize`` of ``x / act_scale``,
+   ``unpack_planes``, ``shiftadd_matmul_bitplane``) and, up to 4 bits, to
+   the direct-shift oracle on the card: every main-path (K, N) with M in
+   ``PHASE3_M``, unpacked and packed planes, x in f32 and bf16, act_scale
+   in ``PHASE3_SCALES``, n_bits 2..5, both of the kernel's bodies (the
+   tensor cores up to 4 bits) and the wrapper's own choice; the codes it
+   writes equal K1's plain version; cold activations, extreme exponents
+   and a fully pruned tile; the codes entry (prologue skipped); one
+   CUDA-graph capture and replay equal to the eager result;
 4. full-width smollm-135m in bf16 (random weights from seed 0), batch 4,
    prompt 64, 32 new tokens through ``greedy_generate``: float, then
-   quantized with stats, then quantized with packed planes.  Each kernel
-   must launch 210 x 32 times in each quantized run (30 layers x 7
-   projections x (1 prefill + 31 decode forwards)), packed tokens must
-   equal unpacked ones, and on one decode step's real activations both
-   kernels must equal their plain versions for every projection of every
-   layer.  Then the smoke config in f32 on the card against the plain
-   path on the host (tokens equal, logits close);
-5. the kernels' time at the decode shapes (M = 4) on the real decode
-   step's inputs, by CUDA-graph replay of one step's 210 launches, beside
-   their plain versions, their bound (bytes over 3.35 TB/s) and, for K2,
-   the bf16 ``torch.matmul`` of the same shapes as context;
+   quantized with stats, then quantized with packed planes.  K2 must
+   launch 210 x 32 times in each quantized run (30 layers x 7 projections
+   x (1 prefill + 31 decode forwards)) and K1 not at all (it is K2's
+   prologue), packed tokens must equal unpacked ones, and on one decode
+   step's real activations the codes K2 wrote must equal K1's plain
+   version and its output K2's plain version for every projection of every
+   layer.  Then the smoke config in f32 on the card against the plain path
+   on the host (tokens equal, logits close);
+5. K2's time by CUDA-graph replay of one real decode step's 210 launches
+   (M = 4), unpacked and packed planes, each beside its bound (the plane
+   bytes of the tiles the skip rule reads, 1/8 of it packed, plus x and the
+   output, over 3.35 TB/s), the plain version, K1 then K2 fed its codes
+   (two launches), and the bf16 ``torch.matmul`` of the same shapes as
+   context; the same kernel fed the step's codes (its prologue skipped)
+   and the launch floor (an empty kernel of each launch's grid, block and
+   cluster shape); K1 alone on the step's activations; then us per launch
+   of both bodies at 64 and 128 rows (chunk) and 256 rows (the prefill's
+   real activations) per (K, N), beside the bytes and bf16 tensor-core
+   bounds, the codes-fed time and the launch floor.  With ``--parent DIR``
+   (a checkout of an earlier tree, e.g. ``git archive`` of the parent
+   commit), the same inputs also go through that tree's K1 then K2, held
+   equal to this tree's output and timed at every one of these shapes;
 6. K3, the paged-attention decode, against its plain version on the card:
    page_len {1, 4, 8} x (G, R) {(1,1), (2,2), (1,3)} x D {8, 16} plus
    smollm-135m's (3, 3, 64) at page_len 16, and the serving path's
@@ -50,7 +67,7 @@ Phases, in order; any failure exits non-zero before the result line:
    every request, float and quantized.  In bf16, K3 float and K3
    quantized with stats (the slice's main path: every count is set to 0
    just before it and read just after) report tok/s, wall time, launches
-   (K3 = 30 x decode forwards; K1/K2 = 210 x forwards), prefix-cache
+   (K3 = 30 x decode forwards; K2 = 210 x forwards, K1 0), prefix-cache
    stats and traffic fractions; on the tick that touches most pages, K3
    against its plain version for all 30 layers (real pool, tables and
    lengths, random queries), then its time by CUDA-graph replay of the
@@ -72,8 +89,9 @@ Phases, in order; any failure exits non-zero before the result line:
    quantized-gather read and K4: every K4 call within f32 tolerance of
    the dequantize-and-gather math on the same inputs, and tokens equal
    unless the two runs wrote a different K/V code.  In bf16 with
-   ``quant=True`` (the slice's main path: K1, K2 and K4 on every decode
-   step; every count is set to 0 just before it and read just after):
+   ``quant=True`` (the slice's main path: K2, with K1 in its prologue,
+   and K4 on every decode step; every count is set to 0 just before it
+   and read just after):
    tok/s, decode-only tok/s, hit rate, launches, the pool bytes per
    request of the reference bench's byte model; on the tick that touches
    most pages, K4 against its plain version for all 30 layers (rows of up
@@ -92,6 +110,8 @@ nothing of the JAX package.
 
 from __future__ import annotations
 
+import argparse
+import importlib
 import json
 import math
 import subprocess
@@ -102,6 +122,9 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM, NVIDIA data sheet
 INT32_OPS_PER_S = 67e12             # CUDA-core 32-bit rate (f32 figure)
+BF16_FLOPS_PER_S = 989e12           # dense bf16 tensor cores
+PHASE3_M = [1, 4, 8, 16, 17, 63, 64, 128, 256]
+PHASE3_SCALES = [1.0, 0.37, 2.0 ** -3]
 MAIN_KN = [(576, 576), (576, 192), (576, 1536), (1536, 576)]
 BATCH, PROMPT, NEW = 4, 64, 32
 PROJ = ["wq", "wk", "wv", "wo", "gate", "up", "down"]
@@ -193,6 +216,12 @@ def eager_ms(torch, fn, reps: int = 5) -> float:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout of an earlier tree of this repository: "
+                         "phase 5 also times its K1 + K2 sequence on the "
+                         "same inputs")
+    args = ap.parse_args()
     if not (REPO / "src" / "repro_torch").is_dir():
         fail(f"src/repro_torch not found beside {Path(__file__).name}")
     sys.path.insert(0, str(REPO / "src"))
@@ -207,11 +236,8 @@ def main() -> None:
     from repro_torch.configs import get_config, get_smoke
     from repro_torch.core.logquant import LogQuantized, log2_quantize
     from repro_torch.core.shiftadd import QuantCtx, shiftadd_matmul_bitplane
-    from repro_torch.core.wquant import quantize_weights
-    from repro_torch.core.bitplane import to_bitplanes
     from repro_torch.kernels import _build
     from repro_torch.kernels.bitplane_matmul import ops as bm_ops
-    from repro_torch.kernels.bitplane_matmul.ref import bitplane_matmul_ref
     from repro_torch.kernels.log2quant import ops as l2_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.models.model import forward, init_caches, init_params
@@ -274,46 +300,7 @@ def main() -> None:
           f"cases (f32/bf16/f16, n_bits 2..8, lattice + main-path shapes)")
 
     # -- phase 3: K2 against its plain version and the oracle ---------------
-    def gemm_case(m, k, n, scale=1.0, zero_frac=0.1):
-        x = torch.randn((m, k), generator=g, device=dev) * scale
-        x[torch.rand((m, k), generator=g, device=dev) < zero_frac] = 0.0
-        q = log2_quantize(x)
-        w = quantize_weights(torch.randn((k, n), generator=g, device=dev)
-                             * 0.05, channel_axis=-1)
-        return q.exp, q.sign, to_bitplanes(w.q), w.q
-
-    cases = []
-    for k, n in MAIN_KN:
-        for m in (1, BATCH, BATCH * PROMPT):
-            cases.append((f"{m}x{k}x{n}", gemm_case(m, k, n)))
-        cases.append((f"cold {BATCH}x{k}x{n}",
-                      gemm_case(BATCH, k, n, scale=0.02)))
-    x = torch.cat([torch.randn((32, 64), generator=g, device=dev) * 1e-3,
-                   torch.randn((32, 64), generator=g, device=dev) * 100.0,
-                   torch.zeros((32, 64), device=dev)], dim=1)
-    q = log2_quantize(x)
-    w = quantize_weights(torch.randn((192, 64), generator=g, device=dev)
-                         * 0.1, channel_axis=-1)
-    cases.append(("extreme exponents", (q.exp, q.sign, to_bitplanes(w.q),
-                                        w.q)))
-    q = log2_quantize(torch.zeros((128, 128), device=dev))
-    ones = torch.ones((128, 128), dtype=torch.int8, device=dev)
-    cases.append(("fully pruned tile", (q.exp, q.sign, to_bitplanes(ones),
-                                        ones)))
-    k2_err = 0
-    for label, (exp, sign, planes, wq) in cases:
-        y = bm_ops.bitplane_matmul(exp, sign, planes)
-        plain = shiftadd_matmul_bitplane(LogQuantized(exp, sign), planes)
-        oracle = bitplane_matmul_ref(exp, sign, wq)
-        k2_err = max(k2_err, int((y.long() - plain.long()).abs().max()))
-        check(k2_err == 0, f"K2 differs from its plain version ({label}): "
-              f"max |diff| {k2_err}")
-        check(torch.equal(y, oracle), f"K2 differs from the oracle ({label})")
-    check(not bm_ops.bitplane_matmul(*cases[-1][1][:3]).any(),
-          "K2 fully pruned tile is not zero")
-    torch.cuda.synchronize()
-    print(f"phase 3: K2 bit-equal to its plain version and the oracle in "
-          f"{len(cases)} cases")
+    k2_err = phase3(torch, dev, g, bm_ops)
 
     # -- phase 4: full-width smollm-135m through greedy_generate ------------
     cfg = get_config("smollm-135m")
@@ -335,6 +322,9 @@ def main() -> None:
           and bm_ops.bitplane_matmul.launches == 0,
           "the float path launched a quantized kernel")
 
+    # every quantized projection is one launch of the fused K2, which
+    # quantizes in its prologue: K1 is not launched on the main path
+    want = {"log2quant": 0, "bitplane_matmul": per_run}
     qparams = quantize_model_params(cfg, params)
     l2_ops.log2quant.launches = bm_ops.bitplane_matmul.launches = 0
     (toks_q, stats), t_q = sync_time(torch, lambda: engine.greedy_generate(
@@ -342,8 +332,8 @@ def main() -> None:
     launches = {"log2quant": l2_ops.log2quant.launches,
                 "bitplane_matmul": bm_ops.bitplane_matmul.launches}
     for kname, count in launches.items():
-        check(count == per_run, f"{kname} launched {count} times in the "
-              f"quantized run, expected {per_run}")
+        check(count == want[kname], f"{kname} launched {count} times in the "
+              f"quantized run, expected {want[kname]}")
 
     pparams = quantize_model_params(cfg, params, pack=True)
     l2_ops.log2quant.launches = bm_ops.bitplane_matmul.launches = 0
@@ -352,8 +342,8 @@ def main() -> None:
     for kname, count in (("log2quant", l2_ops.log2quant.launches),
                          ("bitplane_matmul",
                           bm_ops.bitplane_matmul.launches)):
-        check(count == per_run, f"{kname} launched {count} times in the "
-              f"packed run, expected {per_run}")
+        check(count == want[kname], f"{kname} launched {count} times in the "
+              f"packed run, expected {want[kname]}")
     check(torch.equal(toks_p, toks_q), "packed-plane tokens differ from "
           "unpacked")
     for toks in (toks_f, toks_q):
@@ -370,8 +360,8 @@ def main() -> None:
     print(f"  quant: {new} tokens in {t_q:.3f} s = {new / t_q:.1f} tok/s "
           f"(with stats); packed: {t_p:.3f} s = {new / t_p:.1f} tok/s")
     print(f"  launches per quantized run: {launches} "
-          f"(= {cfg.n_layers} layers x {len(PROJ)} projections x {NEW} "
-          f"forwards)")
+          f"(K2 = {cfg.n_layers} layers x {len(PROJ)} projections x {NEW} "
+          f"forwards; K1 folded into K2's prologue)")
     print(f"  plane traffic per decode step: tile "
           f"{float(tile[:-1].mean()):.6f}, element "
           f"{float(elem[:-1].mean()):.6f}")
@@ -380,13 +370,16 @@ def main() -> None:
           f"(informational: 4-bit LOG2 activations change tokens)")
     print(f"  packed tokens equal unpacked: True")
 
-    # one decode step's real activations, captured through QuantCtx
+    # one decode step's real activations, captured through QuantCtx; the
+    # fused op's own inputs of the prefill and of the step recorded
     caches = init_caches(cfg, BATCH, PROMPT + 1, device=dev)
-    logits, caches = engine.make_prefill_step(cfg, True)(
-        qparams, {"tokens": prompt}, caches)
+    prefill_calls = recorded(bm_ops, lambda: engine.make_prefill_step(
+        cfg, True)(qparams, {"tokens": prompt}, caches))
+    logits, caches = prefill_calls.result
     ctx = QuantCtx(capture=[])
-    step_logits, _ = engine.make_serve_step(cfg, ctx)(
-        qparams, caches, torch.argmax(logits, -1).to(torch.int32)[:, None])
+    step_calls = recorded(bm_ops, lambda: engine.make_serve_step(cfg, ctx)(
+        qparams, caches, torch.argmax(logits, -1).to(torch.int32)[:, None]))
+    step_logits, _ = step_calls.result
     check(bool(torch.isfinite(logits.float()).all()
                and torch.isfinite(step_logits.float()).all()),
           "non-finite logits")
@@ -401,8 +394,9 @@ def main() -> None:
             LogQuantized(exp, sign), planes)),
             f"K2 differs from its plain version on layer {i // 7} "
             f"{PROJ[i % 7]}")
-    print(f"  decode step: K1 and K2 bit-equal to their plain versions on "
-          f"all {len(ctx.capture)} projections' real activations")
+    print(f"  decode step: the fused K2's codes bit-equal to K1's plain "
+          f"version and its output to K2's on all {len(ctx.capture)} "
+          f"projections' real activations")
 
     # the smoke config in f32: kernels on the card vs plain path on host
     scfg = get_smoke("smollm-135m").replace(dtype=torch.float32)
@@ -428,89 +422,9 @@ def main() -> None:
         print(f"  smoke f32 (quant={quant}): tokens equal the host's plain "
               f"path, logits max |diff| {err:.2e}")
 
-    # -- phase 5: kernel times at the decode shapes -------------------------
-    steps = ctx.capture                                  # 210 real calls
-    planes_by_call = [c[3] for c in steps]
-
-    def k1_step():
-        for xs, *_ in steps:
-            l2_ops.log2quant(xs)
-
-    def k1_plain_step():
-        for xs, *_ in steps:
-            log2_quantize(xs)
-
-    def k2_step():
-        for _, exp, sign, planes, _ in steps:
-            bm_ops.bitplane_matmul(exp, sign, planes)
-
-    def k2_plain_step():
-        for _, exp, sign, planes, _ in steps:
-            shiftadd_matmul_bitplane(LogQuantized(exp, sign), planes)
-
-    blk = params["blocks"][0]
-    weights = [(blk[p] if p in ("wq", "wk", "wv", "wo") else blk["mlp"][p])
-               for p in PROJ]
-    acts = [torch.randn((BATCH, w.shape[1]), generator=g, device=dev,
-                        dtype=torch.bfloat16) for w in weights]
-
-    def matmul_step():
-        for r in range(cfg.n_layers):
-            for a, w in zip(acts, weights):
-                torch.matmul(a, w[r])
-
-    # bound: bytes each launch must move, summed over the step
-    k1_bytes = sum(c[0].numel() * (c[0].element_size() + 2) for c in steps)
-    k2_bytes = 0
-    k2_ops = 0
-    for xs, exp, sign, planes, _ in steps:
-        m, k = exp.shape
-        n = planes.shape[2]
-        # plane bytes of the tiles the skip rule reads, each K tile 128
-        # rows deep but the last, which holds k % 128
-        table = bm_ops._skip_table(torch.nn.functional.pad(
-            exp, (0, (-k) % 128, 0, (-m) % 128), value=-8), 128, 128, 4, 8)
-        depth = torch.full((table.shape[1],), 128.0, device=dev)
-        if k % 128:
-            depth[-1] = k % 128
-        k2_bytes += float(((8 - table).float() * depth).sum()) * n
-        k2_bytes += m * k * 2 + m * n * 4
-        k2_ops += 2 * m * k * n
-    bound = {"log2quant": (k1_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-             "bitplane_matmul": (max(k2_bytes / HBM_BYTES_PER_S,
-                                     k2_ops / INT32_OPS_PER_S) * 1e3,
-                                 "bytes" if k2_bytes / HBM_BYTES_PER_S
-                                 >= k2_ops / INT32_OPS_PER_S
-                                 else "operations")}
-    t = {
-        "log2quant": (graph_ms(torch, k1_step), graph_ms(torch,
-                                                          k1_plain_step),
-                      eager_ms(torch, k1_step)),
-        "bitplane_matmul": (graph_ms(torch, k2_step),
-                            graph_ms(torch, k2_plain_step),
-                            eager_ms(torch, k2_step)),
-    }
-    t_mm = graph_ms(torch, matmul_step)
-    print(f"phase 5: one decode step (M = {BATCH}) = {len(steps)} launches "
-          f"of each kernel on the step's real inputs, CUDA-graph replay, "
-          f"on {card}")
-    for kname in ("log2quant", "bitplane_matmul"):
-        ms, plain, eager = t[kname]
-        b_ms, b_by = bound[kname]
-        print(f"  {kname}: {ms:.4f} ms per step ({ms / len(steps) * 1e3:.2f}"
-              f" us per launch), plain {plain:.4f} ms, bound {b_ms:.5f} ms "
-              f"({b_by}), issued eagerly from the host {eager:.4f} ms")
-    print(f"  context: bf16 torch.matmul of the same {len(steps)} (M,K)x(K,N)"
-          f" shapes {t_mm:.4f} ms per step (the untruncated product, not "
-          f"K2's function; the port never calls it)")
-    per_shape = {}
-    for (kk, nn) in MAIN_KN:
-        sel = [c for c in steps if tuple(c[3].shape[1:]) == (kk, nn)]
-        ms = graph_ms(torch, lambda sel=sel: [
-            bm_ops.bitplane_matmul(c[1], c[2], c[3]) for c in sel])
-        per_shape[f"{kk}x{nn}"] = ms / len(sel) * 1e3
-    print("  K2 per launch by (K, N), us: "
-          + ", ".join(f"{s} {v:.2f}" for s, v in per_shape.items()))
+    # -- phase 5: kernel times at the decode, chunk and prefill shapes -----
+    t = phase5(torch, dev, g, card, cfg, params, ctx.capture, step_calls,
+               prefill_calls, l2_ops, bm_ops, args.parent)
 
     # -- phase 6: K3 against its plain version ------------------------------
     k3_err = phase6(torch, dev, pa_ops)
@@ -536,16 +450,9 @@ def main() -> None:
             ("bitplane_matmul", "src/repro_torch/kernels/bitplane_matmul/"
              "csrc/bitplane_matmul.cu",
              "src/repro/kernels/bitplane_matmul/kernel.py:136", k2_err)):
-        ms, plain, eager = t[kname]
         entry = {"name": kname, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launches[kname],
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                 "bound_ms": bound[kname][0], "bound_by": bound[kname][1],
-                 "library_ms": None,
-                 "scope": f"one decode step: {len(steps)} launches, M={BATCH}",
-                 "eager_ms": eager}
-        if kname == "bitplane_matmul":
-            entry["context_matmul_ms"] = t_mm
+                 "max_abs_err": err, **t[kname]}
         table.append(entry)
     table.append({
         "name": "paged_attention", "route": "cuda",
@@ -573,6 +480,449 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
+
+
+class _Calls(list):
+    result = None
+
+
+def recorded(bm_ops, fn) -> _Calls:
+    """Run ``fn`` with every ``log2_bitplane_matmul`` call's inputs
+    recorded; the list's ``result`` is ``fn``'s."""
+    calls = _Calls()
+    inner = bm_ops.log2_bitplane_matmul
+
+    def record(x, act_scale, planes, n_bits=4, **kw):
+        calls.append((x.clone(), act_scale, planes, n_bits))
+        return inner(x, act_scale, planes, n_bits, **kw)
+
+    bm_ops.log2_bitplane_matmul = record
+    try:
+        calls.result = fn()
+    finally:
+        bm_ops.log2_bitplane_matmul = inner
+    return calls
+
+
+def phase3(torch, dev, g, bm_ops) -> int:
+    """K2: the fused op against its plain version, bitplane_matmul_ref and
+    K1's plain version; the codes entry on the extreme cases; one graph
+    replay.  Returns the max |diff| (0 or the script has failed)."""
+    from repro_torch.core.bitplane import pack_planes, to_bitplanes
+    from repro_torch.core.logquant import log2_quantize
+    from repro_torch.core.shiftadd import shiftadd_matmul_bitplane
+    from repro_torch.core.wquant import quantize_weights
+    from repro_torch.kernels.bitplane_matmul.ref import bitplane_matmul_ref
+
+    t0 = time.perf_counter()
+    stats = {"cases": 0, "launches": 0, "err": 0}
+
+    def hold(label, y, plain, oracle):
+        d = int((y.long() - plain.long()).abs().max()) if y.numel() else 0
+        stats["err"] = max(stats["err"], d)
+        stats["launches"] += 1
+        check(d == 0, f"K2 differs from its plain version ({label}): max "
+              f"|diff| {d}")
+        check(torch.equal(y, oracle), f"K2 differs from the oracle ({label})")
+
+    def weights(k, n, scale=0.05, ones=False):
+        w = (torch.ones((k, n), dtype=torch.int8, device=dev) if ones else
+             quantize_weights(torch.randn((k, n), generator=g, device=dev)
+                              * scale, channel_axis=-1).q)
+        unpacked = to_bitplanes(w)
+        return w, {"unpacked": unpacked,
+                   "packed": pack_planes(unpacked, axis=0)}
+
+    def fused_case(label, x, act, w, layouts, n_bits):
+        """Every layout and body of the fused op on x / act.  The direct
+        shift oracle is the plane form's equal only up to n_bits 4: at 5 a
+        live exponent below -7 floors a negative weight to -1, which no
+        plane reaches (the reference's plane form, the kernel's function,
+        gives 0 there)."""
+        a = torch.tensor(act, dtype=torch.float32, device=dev)
+        q = log2_quantize(x.float() / a, n_bits)
+        plain = shiftadd_matmul_bitplane(q, layouts["unpacked"], n_bits)
+        oracle = (bitplane_matmul_ref(q.exp, q.sign, w, n_bits)
+                  if n_bits <= 4 else plain)
+        bodies = (False, True) if n_bits <= 4 else (False,)
+        for lay, planes in layouts.items():
+            for tc in bodies:
+                what = f"{label} {lay} {'tc' if tc else 'int'}"
+                y, got = bm_ops.log2_bitplane_matmul(
+                    x, a, planes, n_bits, codes=True, tensor_cores=tc)
+                hold(what, y, plain, oracle)
+                check(torch.equal(got.exp, q.exp)
+                      and torch.equal(got.sign, q.sign),
+                      f"K2's codes differ from K1's plain version ({what})")
+            hold(f"{label} {lay} auto", bm_ops.log2_bitplane_matmul(
+                x, a, planes, n_bits), plain, oracle)
+        stats["cases"] += 1
+
+    for k, n in MAIN_KN:
+        w, layouts = weights(k, n)
+        for m in PHASE3_M:
+            x32 = torch.randn((m, k), generator=g, device=dev)
+            x32[torch.rand((m, k), generator=g, device=dev) < 0.1] = 0.0
+            for x in (x32, x32.to(torch.bfloat16)):
+                for act in PHASE3_SCALES:
+                    for n_bits in (2, 3, 4, 5):
+                        fused_case(f"{m}x{k}x{n} {x.dtype} act {act} "
+                                   f"n_bits {n_bits}", x, act, w, layouts,
+                                   n_bits)
+        # cold activations: deep negative exponents skip low planes
+        fused_case(f"cold {BATCH}x{k}x{n}", torch.randn(
+            (BATCH, k), generator=g, device=dev) * 0.02, 1.0, w, layouts, 4)
+    x = torch.cat([torch.randn((32, 64), generator=g, device=dev) * 1e-3,
+                   torch.randn((32, 64), generator=g, device=dev) * 100.0,
+                   torch.zeros((32, 64), device=dev)], dim=1)
+    w, layouts = weights(192, 64, scale=0.1)
+    fused_case("extreme exponents", x, 1.0, w, layouts, 4)
+    w, layouts = weights(128, 128, ones=True)
+    fused_case("fully pruned tile", torch.zeros((128, 128), device=dev),
+               1.0, w, layouts, 4)
+    for tc in (False, True):
+        check(not bm_ops.log2_bitplane_matmul(
+            torch.zeros((128, 128), device=dev), torch.tensor(1.0, device=dev),
+            layouts["packed"], tensor_cores=tc).any(),
+            "K2 fully pruned tile is not zero")
+
+    # the codes entry (prologue skipped) on the same kinds of input
+    for label, (m, k, n, scale) in {
+            "codes entry 4x576x192": (BATCH, 576, 192, 1.0),
+            "codes entry 256x1536x576": (256, 1536, 576, 1.0),
+            "codes entry cold 4x576x1536": (BATCH, 576, 1536, 0.02),
+            "codes entry 96x200x130": (96, 200, 130, 0.5)}.items():
+        w, layouts = weights(k, n)
+        q = log2_quantize(torch.randn((m, k), generator=g, device=dev)
+                          * scale)
+        plain = shiftadd_matmul_bitplane(q, layouts["unpacked"])
+        oracle = bitplane_matmul_ref(q.exp, q.sign, w)
+        for lay, planes in layouts.items():
+            if lay == "packed" and k % 8:
+                continue
+            for tc in (False, True):
+                hold(f"{label} {lay}", bm_ops.bitplane_matmul(
+                    q.exp, q.sign, planes, tensor_cores=tc), plain, oracle)
+
+    # one CUDA-graph capture and replay against the eager result
+    for m, k, n in ((BATCH, 576, 1536), (256, 576, 192)):
+        w, layouts = weights(k, n)
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        a = torch.tensor(0.37, device=dev)
+        eager = bm_ops.log2_bitplane_matmul(x, a, layouts["packed"])
+        out = torch.empty_like(eager)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            bm_ops.log2_bitplane_matmul(x, a, layouts["packed"], out=out)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            bm_ops.log2_bitplane_matmul(x, a, layouts["packed"], out=out)
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(out, eager), f"K2 graph replay differs from eager "
+              f"at {m}x{k}x{n}")
+    torch.cuda.synchronize()
+    print(f"phase 3: fused K2 bit-equal to its plain version and the oracle "
+          f"in {stats['cases']} cases ({stats['launches']} launches: MAIN_KN"
+          f" x M {PHASE3_M} x f32/bf16 x act_scale {PHASE3_SCALES} x "
+          f"n_bits 2..5, both layouts, both bodies up to 4 bits), its codes "
+          f"equal to K1's plain version, the codes entry too, graph replay "
+          f"equal to eager ({time.perf_counter() - t0:.1f} s)")
+    return stats["err"]
+
+
+def k2_bound(torch, bm_ops, exp, n, packed, dtype_bytes):
+    """(bytes, ops) one launch must move and do: the plane bytes of the
+    tiles its skip rule reads (1/8 of it packed), x, the output; the
+    plane products of those tiles (2 per weight and plane)."""
+    m, k = exp.shape
+    table = bm_ops._skip_table(torch.nn.functional.pad(
+        exp, (0, (-k) % 128, 0, (-m) % 128), value=-8), 128, 128, 4, 8)
+    depth = torch.full((table.shape[1],), 128.0, device=exp.device)
+    if k % 128:
+        depth[-1] = k % 128
+    rows = torch.full((table.shape[0], 1), 128.0, device=exp.device)
+    if m % 128:
+        rows[-1] = m % 128
+    planes = (8 - table).float()
+    plane_bytes = float((planes.amax(0) * depth).sum()) * n
+    ops = float((planes * depth * rows).sum()) * n * 2
+    return (plane_bytes / (8 if packed else 1) + m * k * dtype_bytes
+            + m * n * 4), ops
+
+
+def parent_ops(parent: Path):
+    """The K1 and K2 wrappers of another tree of this repository (a
+    checkout at ``parent``), built from its own sources: imported while its
+    ``src`` leads ``sys.path`` and this tree's ``repro_torch`` modules are
+    set aside, which then come back.  The two trees' libraries load side by
+    side (ctypes looks a symbol up in its own library)."""
+    def ours():
+        return [k for k in sys.modules
+                if k == "repro_torch" or k.startswith("repro_torch.")]
+
+    mine = {k: sys.modules.pop(k) for k in ours()}
+    src = str(Path(parent).resolve() / "src")
+    sys.path.insert(0, src)
+    try:
+        l2 = importlib.import_module("repro_torch.kernels.log2quant.ops")
+        bm = importlib.import_module(
+            "repro_torch.kernels.bitplane_matmul.ops")
+        check(Path(bm.__file__).is_relative_to(src),
+              f"--parent {parent}: no repro_torch under it")
+        l2._lib()
+        bm._lib()
+    finally:
+        sys.path.remove(src)
+        for k in ours():
+            del sys.modules[k]
+        sys.modules.update(mine)
+    return l2, bm
+
+
+def launch_floor(torch, bm_ops, m, k, n, n_bits, packed, tc):
+    """One launch of an empty kernel of the shape (grid, block, cluster)
+    that ``log2_bitplane_matmul`` gives this call."""
+    rc = bm_ops._lib().qh_bitplane_matmul_launch_floor(
+        m, k, n, n_bits, int(packed), int(tc),
+        torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"launch floor {m}x{k}x{n} failed: {rc}")
+
+
+def phase5(torch, dev, g, card, cfg, params, capture, step_calls,
+           prefill_calls, l2_ops, bm_ops, parent=None) -> dict:
+    """Device ms per decode step by CUDA-graph replay of the step's real
+    launches, and us per launch at the chunk and prefill shapes; with
+    ``parent``, the parent tree's K1 + K2 sequence on the same inputs."""
+    from repro_torch.core.bitplane import pack_planes
+    from repro_torch.core.logquant import log2_quantize
+
+    check(len(step_calls) == len(capture) == cfg.n_layers * len(PROJ),
+          f"recorded {len(step_calls)} step calls")
+    packed = {id(c[2]): pack_planes(c[2], axis=0) for c in step_calls}
+    layouts = {"unpacked": [c[2] for c in step_calls],
+               "packed": [packed[id(c[2])] for c in step_calls]}
+
+    def k2_step(lay):
+        def run():
+            for (x, a, _, nb), planes in zip(step_calls, layouts[lay]):
+                bm_ops.log2_bitplane_matmul(x, a, planes, nb)
+        return run
+
+    def k2_plain_step():
+        for x, a, planes, nb in step_calls:
+            bm_ops.log2_bitplane_matmul_plain(x, a, planes, nb)
+
+    def k1_step():
+        for xs, *_ in capture:
+            l2_ops.log2quant(xs)
+
+    def k1_plain_step():
+        for xs, *_ in capture:
+            log2_quantize(xs)
+
+    def two_launch_step():   # K1, then K2 fed the codes: the old sequence
+        for xs, _, _, planes, _ in capture:
+            q = l2_ops.log2quant(xs)
+            bm_ops.bitplane_matmul(q.exp, q.sign, planes)
+
+    def codes_step(lay):     # the same kernel, its prologue skipped
+        def run():
+            for (_, exp, sign, _, _), (*_, nb), planes in zip(
+                    capture, step_calls, layouts[lay]):
+                bm_ops.bitplane_matmul(exp, sign, planes, nb)
+        return run
+
+    def floor_step(lay):
+        def run():
+            for x, _, planes, nb in step_calls:
+                m, k = x.shape
+                n = planes.shape[2]
+                launch_floor(torch, bm_ops, m, k, n, nb, lay == "packed",
+                             bm_ops.tensor_core_body(m, n, nb))
+        return run
+
+    blk = params["blocks"][0]
+    weights = [(blk[p] if p in ("wq", "wk", "wv", "wo") else blk["mlp"][p])
+               for p in PROJ]
+    acts = [torch.randn((BATCH, w.shape[1]), generator=g, device=dev,
+                        dtype=torch.bfloat16) for w in weights]
+
+    def matmul_step():
+        for r in range(cfg.n_layers):
+            for a, w in zip(acts, weights):
+                torch.matmul(a, w[r])
+
+    bounds = {}
+    for lay in layouts:
+        nbytes = nops = 0.0
+        for (x, _, planes, _), (_, exp, *_) in zip(step_calls, capture):
+            b, _ = k2_bound(torch, bm_ops, exp, planes.shape[2],
+                            lay == "packed", x.element_size())
+            nbytes += b
+            # the integer body: a multiply-add per (m, k, n)
+            nops += 2 * x.shape[0] * x.shape[1] * planes.shape[2]
+        by, op = nbytes / HBM_BYTES_PER_S, nops / INT32_OPS_PER_S
+        bounds[lay] = (max(by, op) * 1e3, "bytes" if by >= op
+                       else "operations")
+    k1_bytes = sum(c[0].numel() * (c[0].element_size() + 2) for c in capture)
+    ms = {lay: graph_ms(torch, k2_step(lay)) for lay in layouts}
+    ms_again = {lay: graph_ms(torch, k2_step(lay)) for lay in layouts}
+    t = {
+        "log2quant": {
+            "ms": graph_ms(torch, k1_step),
+            "plain_ms": graph_ms(torch, k1_plain_step),
+            "bound_ms": k1_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None,
+            "eager_ms": eager_ms(torch, k1_step),
+            "scope": f"one decode step's {len(capture)} scaled activations, "
+                     f"M={BATCH}; not launched on the main path (folded "
+                     f"into bitplane_matmul's prologue)"},
+        "bitplane_matmul": {
+            "ms": ms["unpacked"], "plain_ms": graph_ms(torch, k2_plain_step),
+            "bound_ms": bounds["unpacked"][0],
+            "bound_by": bounds["unpacked"][1], "library_ms": None,
+            "ms_packed": ms["packed"], "bound_ms_packed": bounds["packed"][0],
+            "bound_by_packed": bounds["packed"][1],
+            "ms_repeat": ms_again["unpacked"],
+            "ms_packed_repeat": ms_again["packed"],
+            "two_launch_ms": graph_ms(torch, two_launch_step),
+            "codes_in_ms": graph_ms(torch, codes_step("unpacked")),
+            "codes_in_ms_packed": graph_ms(torch, codes_step("packed")),
+            "launch_floor_ms": graph_ms(torch, floor_step("unpacked")),
+            "launch_floor_ms_packed": graph_ms(torch, floor_step("packed")),
+            "context_matmul_ms": graph_ms(torch, matmul_step),
+            "eager_ms": eager_ms(torch, k2_step("unpacked")),
+            "eager_ms_packed": eager_ms(torch, k2_step("packed")),
+            "scope": f"one decode step: {len(step_calls)} launches, "
+                     f"M={BATCH}, quantizing prologue included; ms = the "
+                     f"unpacked planes phases 4, 7 and 9 serve"},
+    }
+    k2 = t["bitplane_matmul"]
+    print(f"phase 5: one decode step (M = {BATCH}) = {len(step_calls)} "
+          f"launches on the step's real inputs, CUDA-graph replay, on {card}")
+    for lay in layouts:
+        sfx = "" if lay == "unpacked" else "_packed"
+        us = ms[lay] / len(step_calls) * 1e3
+        print(f"  K2 fused, {lay} planes: {k2['ms' + sfx]:.4f} ms per step "
+              f"(again {ms_again[lay]:.4f}; {us:.2f} us per launch), "
+              f"bound {bounds[lay][0]:.5f} ms "
+              f"({bounds[lay][1]}), issued eagerly {k2['eager_ms' + sfx]:.4f}"
+              f" ms")
+    print(f"  K2 plain version {k2['plain_ms']:.4f} ms; K1 then K2 fed its "
+          f"codes (two launches, this tree's kernels) "
+          f"{k2['two_launch_ms']:.4f} ms; context: bf16 torch.matmul of the "
+          f"same {len(step_calls)} "
+          f"shapes {k2['context_matmul_ms']:.4f} ms (the untruncated "
+          f"product, not K2's function; the port never calls it)")
+    print(f"  K2 fed the step's codes (the same kernel, prologue "
+          f"skipped): unpacked {k2['codes_in_ms']:.4f} ms, packed "
+          f"{k2['codes_in_ms_packed']:.4f}; launch floor (an empty kernel "
+          f"of each launch's grid, block and cluster, {len(step_calls)} "
+          f"graph nodes): unpacked {k2['launch_floor_ms']:.4f} ms, packed "
+          f"{k2['launch_floor_ms_packed']:.4f}")
+    k1 = t["log2quant"]
+    print(f"  K1 alone on the step's activations: {k1['ms']:.4f} ms, plain "
+          f"{k1['plain_ms']:.4f}, bound {k1['bound_ms']:.5f} ms (bytes), "
+          f"eagerly {k1['eager_ms']:.4f} (0 launches on the main path)")
+
+    p_l2 = p_bm = None
+    if parent is not None:
+        p_l2, p_bm = parent_ops(parent)
+
+        def parent_k1k2(calls, k1=True, k2=True):
+            codes = [p_l2.log2quant(xs, nb) for xs, _, nb in calls]
+
+            def run():
+                for (xs, planes, nb), q in zip(calls, codes):
+                    if k1:
+                        q = p_l2.log2quant(xs, nb)
+                    if k2:
+                        p_bm.bitplane_matmul(q.exp, q.sign, planes, nb)
+            return run
+
+        step = [(xs, planes, c[3]) for (xs, _, _, planes, _), c in zip(
+            capture, step_calls)]
+        for (xs, planes, nb), (*_, y) in zip(step, capture):
+            q = p_l2.log2quant(xs, nb)
+            check(torch.equal(p_bm.bitplane_matmul(q.exp, q.sign, planes,
+                                                   nb), y),
+                  "the parent's K1 + K2 differ from the fused op")
+        k2["parent_k1_ms"] = graph_ms(torch, parent_k1k2(step, k2=False))
+        k2["parent_k2_ms"] = graph_ms(torch, parent_k1k2(step, k1=False))
+        k2["parent_k1k2_ms"] = graph_ms(torch, parent_k1k2(step))
+        print(f"  parent tree ({parent}), same inputs, its outputs equal: "
+              f"K1 {k2['parent_k1_ms']:.4f} ms + K2 "
+              f"{k2['parent_k2_ms']:.4f} ms (unpacked planes); the sequence "
+              f"K1 then K2 {k2['parent_k1k2_ms']:.4f} ms per step")
+
+    # the chunk and prefill shapes: the prefill's real activations (M =
+    # BATCH x PROMPT rows), their first 128 and 64 rows, both bodies; the
+    # same with the codes fed in (prologue skipped), the launch floor and,
+    # with a parent tree, its K1 + K2
+    rows_all = BATCH * PROMPT
+    by_shape = {}
+    for x, a, planes, nb in prefill_calls:
+        check(x.shape[0] == rows_all, f"prefill call with {x.shape[0]} rows")
+        by_shape.setdefault((x.shape[1], planes.shape[2]), []).append(
+            (x, a, planes, pack_planes(planes, axis=0), nb))
+    per_launch = {}
+    for (kk, nn), calls in by_shape.items():
+        for m in (64, 128, rows_all):
+            row = {}
+            codes = [log2_quantize(c[0][:m].float() / c[1]) for c in calls]
+
+            def per_call(fn):
+                return graph_ms(torch, lambda: [fn(c, q) for c, q in zip(
+                    calls, codes)], reps=5) / len(calls) * 1e3
+
+            for lay_i, lay in ((2, "unpacked"), (3, "packed")):
+                for tc in (False, True):
+                    body = f"{lay}_{'tc' if tc else 'int'}"
+                    row[f"{body}_us"] = per_call(
+                        lambda c, q: bm_ops.log2_bitplane_matmul(
+                            c[0][:m], c[1], c[lay_i], c[4],
+                            tensor_cores=tc))
+                    row[f"{body}_codes_us"] = per_call(
+                        lambda c, q: bm_ops.bitplane_matmul(
+                            q.exp, q.sign, c[lay_i], c[4], tensor_cores=tc))
+                    row[f"{body}_floor_us"] = per_call(
+                        lambda c, q: launch_floor(
+                            torch, bm_ops, m, kk, nn, c[4], lay_i == 3, tc))
+                b, o = k2_bound(torch, bm_ops, codes[0].exp, nn,
+                                lay == "packed", calls[0][0].element_size())
+                row[f"{lay}_bound_us"] = max(b / HBM_BYTES_PER_S,
+                                             o / BF16_FLOPS_PER_S) * 1e6
+            auto = ("tc" if bm_ops.tensor_core_body(m, nn, calls[0][4])
+                    else "int")
+            row["auto"] = auto
+            if p_l2 is not None:
+                xs = [(c[0][:m].float() / c[1], c[2], c[4]) for c in calls]
+                row["parent_k1k2_us"] = graph_ms(
+                    torch, parent_k1k2(xs), reps=5) / len(calls) * 1e3
+            per_launch[f"{m}x{kk}x{nn}"] = row
+            print(f"  M={m} {kk}x{nn} ({len(calls)} launches of the prefill),"
+                  f" us per launch: " + ", ".join(
+                      f"{lay} int {row[lay + '_int_us']:.2f} / tc "
+                      f"{row[lay + '_tc_us']:.2f} (bound "
+                      f"{row[lay + '_bound_us']:.3f})"
+                      for lay in ("unpacked", "packed"))
+                  + f"; the wrapper takes {auto}"
+                  + (f"; parent K1 + K2 {row['parent_k1k2_us']:.2f}"
+                     if p_l2 is not None else ""))
+            print(f"    codes fed in (prologue skipped), int / tc: " +
+                  ", ".join(f"{lay} {row[lay + '_int_codes_us']:.2f} / "
+                            f"{row[lay + '_tc_codes_us']:.2f}"
+                            for lay in ("unpacked", "packed")) +
+                  "; launch floor, int / tc: " +
+                  ", ".join(f"{lay} {row[lay + '_int_floor_us']:.2f} / "
+                            f"{row[lay + '_tc_floor_us']:.2f}"
+                            for lay in ("unpacked", "packed")))
+    k2["per_launch_us"] = per_launch
+    return t
 
 
 def close(torch, out, ref, tol) -> float:
@@ -928,10 +1278,11 @@ def phase7(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
               f"K3 launches {launches['paged_attention']} != "
               f"{cfg.n_layers} x {fwd['decode']} decode forwards")
         if quant:
-            for kn in ("log2quant", "bitplane_matmul"):
-                check(launches[kn] == per_fwd * n_fwd,
-                      f"{kn} launched {launches[kn]} times, expected "
-                      f"{per_fwd} x {n_fwd} forwards")
+            check(launches["bitplane_matmul"] == per_fwd * n_fwd
+                  and launches["log2quant"] == 0,
+                  f"K2 launched {launches['bitplane_matmul']} times, "
+                  f"expected {per_fwd} x {n_fwd} forwards, and K1 "
+                  f"{launches['log2quant']}, expected 0")
         else:
             check(launches["log2quant"] == launches["bitplane_matmul"] == 0,
                   "the float run launched a quantized kernel")
@@ -1298,10 +1649,11 @@ def phase9(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
           and launches["paged_attention"] == 0,
           f"K4 launches {launches} != {cfg.n_layers} x {fwd['decode']} "
           f"decode forwards")
-    for kn in ("log2quant", "bitplane_matmul"):
-        check(launches[kn] == cfg.n_layers * len(PROJ) * n_fwd,
-              f"{kn} launched {launches[kn]} times, expected "
-              f"{cfg.n_layers * len(PROJ)} x {n_fwd} forwards")
+    check(launches["bitplane_matmul"] == cfg.n_layers * len(PROJ) * n_fwd
+          and launches["log2quant"] == 0,
+          f"K2 launched {launches['bitplane_matmul']} times, expected "
+          f"{cfg.n_layers * len(PROJ)} x {n_fwd} forwards, and K1 "
+          f"{launches['log2quant']}, expected 0")
     total = sum(len(r.tokens) for r in res)
     st = sched.prefix_cache_stats()
     check(st["cached_tokens"] > 0 and st["cached_tokens"] % pl != 0,

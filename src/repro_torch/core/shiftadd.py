@@ -11,10 +11,11 @@ leave memory.  :func:`shiftadd_matmul_bitplane` is the bit-plane regrouping
 (``kernels/bitplane_matmul``) and is used as nothing else.
 
 :func:`quantized_linear_apply` is the projection every quantized GEMM of
-the model runs: scale the activation, LOG2-quantize it (CUDA kernel
-``kernels/log2quant``), run the plane-skipping bit-plane GEMM (CUDA kernel
-``kernels/bitplane_matmul``), rescale by the per-channel weight scale.  On
-CPU tensors both kernels' wrappers run their plain versions.
+the model runs: scale the activation, LOG2-quantize it and run the
+plane-skipping bit-plane GEMM in one CUDA kernel
+(``kernels/bitplane_matmul``, which applies the quantizer of
+``kernels/log2quant`` in its prologue), then rescale by the per-channel
+weight scale.  On CPU tensors the kernel's wrapper runs its plain version.
 """
 
 from __future__ import annotations
@@ -74,10 +75,10 @@ class QuantCtx:
       traffic counts, weighted by the GEMM's N extent (tile-granular: what
       the kernel's skip rule reads; element-granular: the ASIC bank model).
     * ``capture`` — when a list, each quantized projection appends
-      ``(xs, exp, sign, planes, y_int)``: the scaled activation, the
-      quantizer's codes and the GEMM's planes and int32 output, so a caller
-      can hold both kernels against their plain versions on real
-      activations.
+      ``(xs, exp, sign, planes, y_int)``: the scaled activation, the codes
+      the kernel's prologue wrote, the GEMM's planes (unpacked) and its
+      int32 output, so a caller can hold the kernel's quantizer and GEMM
+      against their plain versions on real activations.
     """
 
     n_bits: int = 4
@@ -116,33 +117,38 @@ def quantized_linear_apply(p: QuantizedLinearParams, x: torch.Tensor,
                            ctx: Optional[QuantCtx] = None) -> torch.Tensor:
     """x (..., K) -> y (..., N) through the full QeiHaN path.
 
-    Planes packed 8-to-a-byte along K are unpacked first, in plain torch.
-    The epilogue keeps the reference's float order:
+    One kernel call (``kernels.bitplane_matmul.log2_bitplane_matmul``)
+    scales, LOG2-quantizes and runs the plane-skipping GEMM on the planes
+    as stored, packed along K or not; on CPU tensors it runs its plain
+    version.  The epilogue keeps the reference's float order:
     ``(y_int * w_scale) * act_scale``, then ``+ bias``.
     """
-    from repro_torch.kernels.bitplane_matmul.ops import (bitplane_matmul,
-                                                          plane_traffic_counts)
-    from repro_torch.kernels.log2quant.ops import log2quant
+    from repro_torch.kernels.bitplane_matmul.ops import (
+        log2_bitplane_matmul, plane_traffic_counts)
 
     lead = x.shape[:-1]
     k = x.shape[-1]
-    planes = p.planes
-    if planes.shape[1] * 8 == k:                  # packed along K
-        planes = bp.unpack_planes(planes, axis=0)
-    xs = (x.float() / p.act_scale).reshape(-1, k)
-    q = log2quant(xs, n_bits=n_bits)
+    x2 = x.reshape(-1, k).contiguous()
+    want_codes = ctx is not None and (ctx.collect is not None
+                                      or ctx.capture is not None)
+    out = log2_bitplane_matmul(x2, p.act_scale, p.planes, n_bits=n_bits,
+                               codes=want_codes)
+    y_int, q = out if want_codes else (out, None)
     if ctx is not None and ctx.collect is not None:
         from repro_torch.core.access_model import needed_bits
-        n_scale = float(planes.shape[-1])
+        n_scale = float(p.planes.shape[-1])
         tile_f, tile_t = plane_traffic_counts(q.exp, n_bits=n_bits)
         nb = needed_bits(q.exp, n_bits=n_bits)
         alive = (q.exp != zero_sentinel(n_bits)).float()
         ctx.collect.append((tile_f * n_scale, tile_t * n_scale,
                             nb.float().sum() * n_scale,
                             alive.sum() * 8.0 * n_scale))
-    y_int = bitplane_matmul(q.exp, q.sign, planes, n_bits=n_bits)
     if ctx is not None and ctx.capture is not None:
-        ctx.capture.append((xs, q.exp, q.sign, planes, y_int))
+        planes = p.planes
+        if planes.shape[1] * 8 == k:              # packed along K
+            planes = bp.unpack_planes(planes, axis=0)
+        ctx.capture.append((x2.float() / p.act_scale, q.exp, q.sign, planes,
+                            y_int))
     y = y_int.float() * p.w_scale * p.act_scale
     y = y.reshape(*lead, -1)
     if p.bias is not None:

@@ -4,10 +4,11 @@
 Every ``kernels/*/csrc/*.cu`` becomes its own shared library with a plain C
 interface, compiled for ``sm_90a`` into ``kernels/build/`` (git-ignored).
 A library's file name carries a hash of its source, of every header
-(``*.cuh``) in its ``csrc/`` directory and of the flags, so a changed
-source or header rebuilds and an unchanged one loads as is.  All missing
-libraries are compiled at once, one ``nvcc`` process per source, started
-together.  A failed build raises with nvcc's stderr.
+(``*.cuh``) in its ``csrc/`` directory and in the shared ``include/``
+directory (on the include path of every build), and of the flags, so a
+changed source or header rebuilds and an unchanged one loads as is.  All
+missing libraries are compiled at once, one ``nvcc`` process per source,
+started together.  A failed build raises with nvcc's stderr.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Dict, List
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR / "build"
+INCLUDE_DIR = KERNELS_DIR / "include"   # headers shared between kernels
 CUDA_NVCC = Path("/usr/local/cuda/bin/nvcc")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -48,7 +50,8 @@ def find_nvcc() -> str:
 
 def library_path(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
-    for header in sorted(src.parent.glob("*.cuh")):
+    for header in (sorted(src.parent.glob("*.cuh"))
+                   + sorted(INCLUDE_DIR.glob("*.cuh"))):
         h.update(header.name.encode())
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -56,7 +59,8 @@ def library_path(src: Path) -> Path:
 
 
 def nvcc_command(nvcc: str, src: Path, out: Path) -> List[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), str(src)]
+    return [nvcc, *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(out),
+            str(src)]
 
 
 def build_all() -> Dict[str, Path]:

@@ -9,7 +9,8 @@
 //          and NaN -> the sentinel -(2^(n-1)); +-Inf -> 2^(n-1) - 1
 //   sign = -1 iff x < 0 (so -0.0 and NaN give +1)
 // bf16 and f16 inputs widen to f32 exactly first, so the field logic is the
-// f32 one.
+// f32 one.  The rule itself lives in ../../include/log2_rule.cuh, shared
+// with the bit-plane GEMM, which applies it in its prologue.
 //
 // What bounds it on an H100: bytes.  It reads each input once and writes
 // two int8 codes (6 bytes per f32 element, 4 per bf16/f16) and does a few
@@ -24,9 +25,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "log2_rule.cuh"
+
 namespace {
 
-constexpr int kSqrt2Mantissa = 3474676;  // first f32 mantissa >= sqrt(2)
 constexpr int kThreads = 256;
 
 enum InputKind { kF32 = 0, kBF16 = 1, kF16 = 2 };
@@ -41,21 +43,10 @@ __device__ __forceinline__ uint32_t widen(uint32_t raw, int kind) {
 __device__ __forceinline__ void quantize(uint32_t bits, int sentinel,
                                          int emax, int8_t& e_out,
                                          int8_t& s_out) {
-  const int exp_field = (bits >> 23) & 0xFF;
-  const int man_field = bits & 0x7FFFFF;
-  const bool is_nan = exp_field == 0xFF && man_field != 0;
-  int e = exp_field - 127 + (man_field >= kSqrt2Mantissa ? 1 : 0);
-  e = min(max(e, sentinel), emax);
-  if (exp_field == 0 || is_nan) {
-    e = sentinel;
-  } else if (exp_field == 0xFF) {
-    e = emax;
-  }
-  // x < 0 in IEEE terms: sign bit set, not NaN, not -0.0
-  const bool negative = (bits >> 31) != 0 && !is_nan &&
-                        (bits & 0x7FFFFFFFu) != 0;
+  int e, s;
+  qh::log2_code(bits, sentinel, emax, e, s);
   e_out = static_cast<int8_t>(e);
-  s_out = negative ? int8_t(-1) : int8_t(1);
+  s_out = static_cast<int8_t>(s);
 }
 
 // VEC elements per 16-byte load: 4 f32 or 8 bf16/f16.

@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card:
-K1 (LOG2 quantizer) and K2 (bit-plane GEMM) bit-equal, K3 (paged-attention
+K1 (LOG2 quantizer) and K2 (bit-plane GEMM, fed codes or quantizing x /
+act_scale in its prologue, on unpacked or packed planes, each body)
+bit-equal, K3 (paged-attention
 decode) within the reference's tolerances (f32 ``rtol=2e-5, atol=2e-6``;
 bf16 ``atol=2e-2`` on the merged output), with trash-page poison bitwise
 invisible on live rows, and K4 (paged-attention decode over the
@@ -21,7 +23,7 @@ import math
 import pytest
 import torch
 
-from repro_torch.core.bitplane import to_bitplanes
+from repro_torch.core.bitplane import pack_planes, to_bitplanes
 from repro_torch.core.logquant import (LogQuantized, code_dtype,
                                       log2_quantize, quantize_page_codes,
                                       scale_exponent)
@@ -113,6 +115,113 @@ def test_wrappers_refuse_non_contiguous_cuda_input(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         bm_ops.bitplane_matmul(exp, sign, planes.transpose(1, 2)
                                .contiguous().transpose(1, 2))
+
+
+def _fused(m, k, n, seed, dtype=torch.bfloat16, scale=1.0, device="cuda"):
+    """x (m, k) with zeros, int8 weights as (int8, unpacked, packed)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((m, k), generator=g) * scale
+    x[torch.rand((m, k), generator=g) < 0.1] = 0.0
+    w = quantize_weights(torch.randn((k, n), generator=g) * 0.1,
+                         channel_axis=-1).q
+    planes = to_bitplanes(w)
+    return (x.to(dtype).to(device), w.to(device), planes.to(device),
+            pack_planes(planes, axis=0).to(device))
+
+
+@pytest.mark.parametrize("tensor_cores", [None, False, True])
+@pytest.mark.parametrize("layout", ["unpacked", "packed"])
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 63, 64, 127, 128, 130])
+def test_fused_kernel_bit_equal_to_plain(cuda, m, layout, tensor_cores):
+    """Around the integer / tensor-core switch (N = 384 crosses it at 128
+    rows), both layouts, each body and the wrapper's choice: the output
+    equals the plain version and the direct-shift oracle, the codes K1's
+    plain version."""
+    for k, n, dtype, act in ((576, 192, torch.bfloat16, 0.37),
+                             (576, 384, torch.bfloat16, 2.0 ** -3),
+                             (200, 40, torch.float32, 1.0)):
+        x, w, unpacked, packed = _fused(m, k, n, m + k + n, dtype)
+        planes = packed if layout == "packed" else unpacked
+        a = torch.tensor(act, device=cuda)
+        for n_bits in (2, 4, 5):
+            if tensor_cores and n_bits > 4:
+                continue
+            want, q = bm_ops.log2_bitplane_matmul_plain(x, a, planes, n_bits)
+            before = bm_ops.bitplane_matmul.launches
+            y, got = bm_ops.log2_bitplane_matmul(
+                x, a, planes, n_bits, codes=True, tensor_cores=tensor_cores)
+            torch.cuda.synchronize()
+            assert bm_ops.bitplane_matmul.launches == before + 1
+            assert torch.equal(y, want)
+            assert torch.equal(got.exp, q.exp)
+            assert torch.equal(got.sign, q.sign)
+            if n_bits <= 4:
+                assert torch.equal(y, bitplane_matmul_ref(q.exp, q.sign, w,
+                                                          n_bits))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernel_codes_equal_k1_plain_on_the_lattice(cuda, dtype):
+    """Specials, comparator edges and subnormals through the fused op's
+    prologue: its codes are K1's plain version on x / act_scale."""
+    lat = _lattice()
+    x = lat[: (lat.numel() // 64) * 64].reshape(-1, 64).to(dtype).to(cuda)
+    _, _, unpacked, packed = _fused(1, 64, 16, 3)
+    for act in (1.0, 0.37, 2.0 ** -3):
+        a = torch.tensor(act, device=cuda)
+        for n_bits in (2, 3, 4, 5):
+            for planes in (unpacked, packed):
+                y, got = bm_ops.log2_bitplane_matmul(x, a, planes, n_bits,
+                                                     codes=True)
+                want, q = bm_ops.log2_bitplane_matmul_plain(x, a, planes,
+                                                            n_bits)
+                torch.cuda.synchronize()
+                assert torch.equal(got.exp, q.exp)
+                assert torch.equal(got.sign, q.sign)
+                assert torch.equal(y, want)
+
+
+def test_fused_kernel_fully_pruned_tile_is_zero(cuda):
+    x = torch.zeros((128, 128), device=cuda)
+    planes = to_bitplanes(torch.ones((128, 128), dtype=torch.int8,
+                                     device=cuda))
+    a = torch.tensor(1.0, device=cuda)
+    for p in (planes, pack_planes(planes, axis=0)):
+        for tc in (False, True):
+            assert not bm_ops.log2_bitplane_matmul(x, a, p,
+                                                   tensor_cores=tc).any()
+
+
+@pytest.mark.parametrize("m", [4, 256])
+def test_fused_kernel_graph_replay_equals_eager(cuda, m):
+    x, _, _, packed = _fused(m, 576, 192, 7)
+    a = torch.tensor(0.37, device=cuda)
+    eager = bm_ops.log2_bitplane_matmul(x, a, packed)
+    out = torch.empty_like(eager)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bm_ops.log2_bitplane_matmul(x, a, packed, out=out)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        bm_ops.log2_bitplane_matmul(x, a, packed, out=out)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+def test_fused_wrapper_refuses_non_contiguous_cuda_input(cuda):
+    x, _, unpacked, packed = _fused(8, 64, 16, 0)
+    a = torch.tensor(1.0, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        bm_ops.log2_bitplane_matmul(x.t().contiguous().t(), a, unpacked)
+    with pytest.raises(ValueError, match="contiguous"):
+        bm_ops.log2_bitplane_matmul(
+            x, a, packed.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="share one device"):
+        bm_ops.log2_bitplane_matmul(x, a.cpu(), unpacked)
 
 
 def _paged_case(page_len, nb, g, r, d, lengths, dtype, poison, seed,

@@ -305,6 +305,24 @@ def test_library_path_follows_the_headers_beside_the_source(tmp_path):
     assert _build.library_path(src) not in (first, second)
 
 
+def test_library_path_follows_the_shared_include_headers(tmp_path,
+                                                         monkeypatch):
+    """A header in ``kernels/include/`` (the LOG2 rule K1 and K2 share) is
+    on every build's include path and in every library's name."""
+    include = tmp_path / "include"
+    include.mkdir()
+    monkeypatch.setattr(_build, "INCLUDE_DIR", include)
+    src = {p.stem: p for p in _build.sources()}["bitplane_matmul"]
+    cmd = _build.nvcc_command("nvcc", src, tmp_path / "x.so")
+    assert cmd[cmd.index("-I") + 1] == str(include)
+    first = _build.library_path(src)
+    (include / "rule.cuh").write_text("#define R 1\n")
+    second = _build.library_path(src)
+    assert second != first
+    (include / "rule.cuh").write_text("#define R 2\n")
+    assert _build.library_path(src) not in (first, second)
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build, "CUDA_NVCC", tmp_path / "nvcc")
