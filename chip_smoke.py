@@ -23,14 +23,18 @@ Phases, in order; any failure exits non-zero before the result line:
    CUDA-graph capture and replay equal to the eager result;
 4. full-width smollm-135m in bf16 (random weights from seed 0), batch 4,
    prompt 64, 32 new tokens through ``greedy_generate``: float, then
-   quantized with stats, then quantized with packed planes.  K2 must
-   launch 210 x 32 times in each quantized run (30 layers x 7 projections
-   x (1 prefill + 31 decode forwards)) and K1 not at all (it is K2's
-   prologue), packed tokens must equal unpacked ones, and on one decode
-   step's real activations the codes K2 wrote must equal K1's plain
-   version and its output K2's plain version for every projection of every
-   layer.  Then the smoke config in f32 on the card against the plain path
-   on the host (tokens equal, logits close);
+   quantized with stats, then quantized with packed planes.  Each
+   configuration is one program: its first call captures the CUDA graph,
+   the second replays it (the main path), then the same body runs under
+   ``engine.eager()``; tokens and stats of the two are equal.  K2 must
+   launch 210 x 32 times in each quantized run, by the graph's capture
+   census times its replays and counted by the wrapper in the eager run
+   (30 layers x 7 projections x (1 prefill + 31 decode forwards)), and
+   K1 not at all (it is K2's prologue), packed tokens must equal unpacked
+   ones, and on one decode step's real activations the codes K2 wrote
+   must equal K1's plain version and its output K2's plain version for
+   every projection of every layer.  Then the smoke config in f32 on the
+   card against the plain path on the host (tokens equal, logits close);
 5. K2's time by CUDA-graph replay of one real decode step's 210 launches
    (M = 4), unpacked and packed planes, each beside its bound (the plane
    bytes of the tiles the skip rule reads, 1/8 of it packed, plus x and the
@@ -63,16 +67,28 @@ Phases, in order; any failure exits non-zero before the result line:
    of 200-400 tokens that take the chunked path, 8 that share a 96-token
    prefix with an earlier request, 4 of them 1-15 tokens more, which ends
    the hit inside a page: copy on write, and 4 exact repeats), 32 new
-   tokens each.  In f32, the gather read and K3 give equal tokens for
-   every request, float and quantized.  In bf16, K3 float and K3
-   quantized with stats (the slice's main path: every count is set to 0
-   just before it and read just after) report tok/s, wall time, launches
-   (K3 = 30 x decode forwards; K2 = 210 x forwards, K1 0), prefix-cache
-   stats and traffic fractions; on the tick that touches most pages, K3
-   against its plain version for all 30 layers (real pool, tables and
-   lengths, random queries), then its time by CUDA-graph replay of the
-   step's 30 launches beside its bound (touched K/V pages, q and the
-   partials over 3.35 TB/s), the plain version's time and, as context,
+   tokens each.  In f32, at the first 8 of the 30 layers (to keep the
+   script's time), the gather read and K3 give equal tokens for every
+   request, float and quantized (these audited runs synchronise
+   with the host, so they run under ``engine.eager()``).  In bf16, K3
+   float and K3 quantized with stats (the slice's main path) each run as
+   CUDA-graph programs, then under ``engine.eager()``, every count set to
+   0 just before each run and read just after: the two runs are held
+   equal in tokens, per-request stats, forwards and every tick's page
+   table; each reports whole-trace and decode-only tok/s and ms per
+   decode step, the graph run ``compile_stats()`` (tick 1, chunk and
+   mixed at most 1, prefill at most 4), each graph's capture ms, replays,
+   launch census and kernel-node count, and its tick graph's device time
+   replayed alone; launches (by census x replays in the graph run, by
+   the wrappers' counts in the eager run: K3 = 30 x decode forwards; K2
+   = 210 x forwards, K1 0), prefix-cache stats and traffic fractions.
+   The first tick that can only decode is traced with ``torch.profiler``
+   in both quantized runs: its device-busy share and top five device
+   ops.  On the tick that touches most pages, K3 against its plain
+   version for all 30 layers (real pool, tables and lengths, random
+   queries), then its time by CUDA-graph replay of the step's 30
+   launches beside its bound (touched K/V pages, q and the partials over
+   3.35 TB/s), the plain version's time and, as context,
    ``_paged_gather`` + ``F.scaled_dot_product_attention`` on the same
    tables;
 8. K4, the paged-attention decode over the log2-quantized pool, against
@@ -88,22 +104,27 @@ Phases, in order; any failure exits non-zero before the result line:
    first 8 of the 30 layers (to keep the script's time), the
    quantized-gather read and K4: every K4 call within f32 tolerance of
    the dequantize-and-gather math on the same inputs, and tokens equal
-   unless the two runs wrote a different K/V code.  In bf16 with
-   ``quant=True`` (the slice's main path: K2, with K1 in its prologue,
-   and K4 on every decode step; every count is set to 0 just before it
-   and read just after):
-   tok/s, decode-only tok/s, hit rate, launches, the pool bytes per
-   request of the reference bench's byte model; on the tick that touches
-   most pages, K4 against its plain version for all 30 layers (rows of up
-   to 372 tokens: the partial o held divided by its split's l), then its
-   time by CUDA-graph replay of the step's 30 launches beside its bound
-   (the full code pages it reads, their scales, q and the partials over
-   3.35 TB/s), the plain version's time and two contexts: gathering the
-   table's code pages and scales, dequantizing only those, then
+   unless the two runs wrote a different K/V code (these audited runs
+   go through ``engine.eager()``).  In bf16 with ``quant=True`` on
+   packed planes, the deploy format (the slice's main path: K2, with K1
+   in its prologue, and K4 on every decode step), as CUDA-graph
+   programs, then under ``engine.eager()``, held equal in tokens,
+   forwards, every tick's page table and a digest of the code and scale
+   pages after every tick; tok/s, decode-only tok/s, ms per decode step,
+   ``compile_stats()`` and each graph's capture, launches (as phase 7),
+   hit rate, the pool bytes per request of the reference bench's byte
+   model; on the tick that touches most pages, K4 against its plain
+   version for all 30 layers (rows of up to 372 tokens: the partial o
+   held divided by its split's l), then its time by CUDA-graph replay of
+   the step's 30 launches beside its bound (the full code pages it
+   reads, their scales, q and the partials over 3.35 TB/s), the plain
+   version's time and two contexts: gathering the table's code pages and
+   scales, dequantizing only those, then
    ``F.scaled_dot_product_attention`` (``library_ms``), and dequantizing
    the whole pool, then ``_paged_gather`` + the same SDPA.
 
-Prints a ``kernels:`` line, the JSON kernel table and, last, the result
+Prints a ``serving:`` line (graph and eager tok/s of phases 4, 7 and
+9), a ``kernels:`` line, the JSON kernel table and, last, the result
 line ``{"ok": true, "device": {...}}``.  It imports nothing of JAX and
 nothing of the JAX package.
 """
@@ -111,9 +132,11 @@ nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -135,7 +158,7 @@ SERVE = dict(max_slots=8, max_len=512, buckets=(16, 32, 64, 128),
              prefix_cache=True, attn_splits=2)
 SERVE_NEW = 32
 KV_BITS = 4
-F32_KVQ_LAYERS = 8                  # depth of phase 9's f32 comparison
+F32_LAYERS = 8                      # depth of phases 7 and 9's f32 runs
 # phases 6 and 8 at the serving path's geometry (page_len 16, 32 table
 # columns): rows long enough that every warp of a block walks several
 # pages, at smollm-135m's (G, R, D) and at D = 128 and R = 8
@@ -225,6 +248,9 @@ def main() -> None:
     if not (REPO / "src" / "repro_torch").is_dir():
         fail(f"src/repro_torch not found beside {Path(__file__).name}")
     sys.path.insert(0, str(REPO / "src"))
+    # cuBLAS picks its reduction order per workspace: a fixed workspace
+    # config keeps the graph runs bit-equal to their engine.eager() runs
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -314,38 +340,62 @@ def main() -> None:
           f"vocab={cfg.vocab_size} {cfg.dtype}, batch {BATCH}, prompt "
           f"{PROMPT}, {NEW} new tokens")
 
-    engine.greedy_generate(cfg, params, prompt, 2)           # warm-up
-    l2_ops.log2quant.launches = bm_ops.bitplane_matmul.launches = 0
-    toks_f, t_f = sync_time(torch, lambda: engine.greedy_generate(
-        cfg, params, prompt, NEW))
-    check(l2_ops.log2quant.launches == 0
-          and bm_ops.bitplane_matmul.launches == 0,
-          "the float path launched a quantized kernel")
+    # each configuration is one program: its first call captures the
+    # graph (timed as the capture), the second replays it (the main path:
+    # its launches are the capture census times the replays), then the
+    # same body runs under engine.eager(); the two runs are held equal
+    qparams = quantize_model_params(cfg, params)
+    pparams = quantize_model_params(cfg, params, pack=True)
+    gen_runs = {}
+    for tag, p, quant, stats in (("float", params, False, False),
+                                 ("quant+stats", qparams, True, True),
+                                 ("packed", pparams, True, False)):
+        def call(p=p, quant=quant, stats=stats):
+            return engine.greedy_generate(cfg, p, prompt, NEW, quant=quant,
+                                          with_stats=stats)
+        _, t_cap = sync_time(torch, call)
+        prog = engine.generate_fn(cfg, p, NEW, 0.0, quant, None, stats,
+                                  dev).program
+        (entry,) = prog.entries()
+        before = entry.replays
+        l2_ops.log2quant.launches = bm_ops.bitplane_matmul.launches = 0
+        out, t_graph = sync_time(torch, call)
+        replayed = {k: n * (entry.replays - before)
+                    for k, n in entry.census.items()}
+        check(l2_ops.log2quant.launches == bm_ops.bitplane_matmul.launches
+              == 0, f"{tag}: a kernel ran outside the graph replay")
+        with engine.eager():
+            eager_out, t_eager = sync_time(torch, call)
+        eager_launches = {"log2quant": l2_ops.log2quant.launches,
+                          "bitplane_matmul": bm_ops.bitplane_matmul.launches}
+        toks, st = out if stats else (out, None)
+        etoks, est = eager_out if stats else (eager_out, None)
+        check(torch.equal(toks, etoks) and (not stats or all(
+            torch.equal(st[k], est[k]) for k in st)),
+            f"{tag}: graph tokens or stats differ from engine.eager()'s")
+        nodes = engine.graph_nodes(entry)
+        gen_runs[tag] = dict(toks=toks, stats=st, t_cap=t_cap,
+                             t_graph=t_graph, t_eager=t_eager,
+                             replayed=replayed, eager=eager_launches,
+                             capture_ms=entry.capture_ms, nodes=nodes)
 
     # every quantized projection is one launch of the fused K2, which
     # quantizes in its prologue: K1 is not launched on the main path
     want = {"log2quant": 0, "bitplane_matmul": per_run}
-    qparams = quantize_model_params(cfg, params)
-    l2_ops.log2quant.launches = bm_ops.bitplane_matmul.launches = 0
-    (toks_q, stats), t_q = sync_time(torch, lambda: engine.greedy_generate(
-        cfg, qparams, prompt, NEW, quant=True, with_stats=True))
-    launches = {"log2quant": l2_ops.log2quant.launches,
-                "bitplane_matmul": bm_ops.bitplane_matmul.launches}
-    for kname, count in launches.items():
-        check(count == want[kname], f"{kname} launched {count} times in the "
-              f"quantized run, expected {want[kname]}")
-
-    pparams = quantize_model_params(cfg, params, pack=True)
-    l2_ops.log2quant.launches = bm_ops.bitplane_matmul.launches = 0
-    toks_p, t_p = sync_time(torch, lambda: engine.greedy_generate(
-        cfg, pparams, prompt, NEW, quant=True))
-    for kname, count in (("log2quant", l2_ops.log2quant.launches),
-                         ("bitplane_matmul",
-                          bm_ops.bitplane_matmul.launches)):
-        check(count == want[kname], f"{kname} launched {count} times in the "
-              f"packed run, expected {want[kname]}")
-    check(torch.equal(toks_p, toks_q), "packed-plane tokens differ from "
-          "unpacked")
+    for tag in ("quant+stats", "packed"):
+        for label in ("replayed", "eager"):
+            got = gen_runs[tag][label]
+            for kname in want:
+                check(got[kname] == want[kname], f"{tag} {label}: {kname} "
+                      f"launched {got[kname]} times, expected {want[kname]}")
+    check(gen_runs["float"]["replayed"]["bitplane_matmul"] == 0
+          and gen_runs["float"]["eager"]["bitplane_matmul"] == 0,
+          "the float path launched a quantized kernel")
+    launches = {k: gen_runs["quant+stats"]["replayed"][k] for k in want}
+    toks_f, toks_q = gen_runs["float"]["toks"], gen_runs["quant+stats"]["toks"]
+    stats = gen_runs["quant+stats"]["stats"]
+    check(torch.equal(gen_runs["packed"]["toks"], toks_q),
+          "packed-plane tokens differ from unpacked")
     for toks in (toks_f, toks_q):
         check(toks.shape == (BATCH, NEW) and bool((toks >= 0).all())
               and bool((toks < cfg.vocab_size).all()), "bad token tensor")
@@ -355,11 +405,17 @@ def main() -> None:
                and (elem[:-1] > 0).all() and (elem <= tile + 1e-6).all()
                and tile[-1] == 0), f"bad traffic stats {tile} {elem}")
     new = BATCH * NEW
-    print(f"  float: {new} tokens in {t_f:.3f} s = {new / t_f:.1f} tok/s "
-          f"(prefill + decode, eager)")
-    print(f"  quant: {new} tokens in {t_q:.3f} s = {new / t_q:.1f} tok/s "
-          f"(with stats); packed: {t_p:.3f} s = {new / t_p:.1f} tok/s")
-    print(f"  launches per quantized run: {launches} "
+    for tag, r in gen_runs.items():
+        nodes = r["nodes"]
+        print(f"  {tag}: {new} tokens, graph replay {r['t_graph']:.4f} s = "
+              f"{new / r['t_graph']:.1f} tok/s; engine.eager() "
+              f"{r['t_eager']:.4f} s = {new / r['t_eager']:.1f} tok/s; first "
+              f"call (warm-up + capture + replay) {r['t_cap']:.3f} s, capture "
+              f"{r['capture_ms']:.1f} ms; graph kernel nodes "
+              + (f"{nodes[0]} of {nodes[1]}" if nodes else "not available")
+              + f"; tokens and stats equal to engine.eager()'s")
+    print(f"  launches per quantized run: replayed {launches}, "
+          f"engine.eager() {gen_runs['quant+stats']['eager']} "
           f"(K2 = {cfg.n_layers} layers x {len(PROJ)} projections x {NEW} "
           f"forwards; K1 folded into K2's prologue)")
     print(f"  plane traffic per decode step: tile "
@@ -441,6 +497,12 @@ def main() -> None:
     k4 = phase9(torch, dev, card, pa_ops, l2_ops, bm_ops)
     k4_err = max(k4_err, k4["max_abs_err"])
     print(f"  (phases 8-9 done at {time.perf_counter() - t_main:.0f} s)")
+    serving = {"phase4": {tag: {
+        "graph_tok_s": BATCH * NEW / r["t_graph"],
+        "eager_tok_s": BATCH * NEW / r["t_eager"],
+        "capture_ms": r["capture_ms"]} for tag, r in gen_runs.items()},
+        "phase7": k3["serve"], "phase9": k4["serve"]}
+    print(f"serving ({card}): {json.dumps(serving)}")
 
     table = []
     for kname, src, replaces, err in (
@@ -1127,11 +1189,15 @@ def serve_trace(vocab: int):
 
 
 def serve(torch, dev, cfg, trace, *, quant, kernel, stats, counters,
-          on_tick=None, kv_quant=False):
+          on_tick=None, kv_quant=False, pack=False, profile=None):
     """Serve the trace through ServeScheduler; returns (results, sched,
-    forwards, wall seconds).  ``counters`` are zeroed just before the run;
-    ``forwards`` counts the decode steps, chunk forwards and bucketed
-    prefills the scheduler issued."""
+    forwards, wall seconds, run).  ``counters`` are zeroed just before the
+    run; ``forwards`` counts the decode steps, chunk forwards and bucketed
+    prefills the scheduler's programs ran; ``run`` holds each tick's page
+    table, the decode-only ticks' tokens and time, the kernel launches the
+    graph replays ran (each program's capture census times its replays)
+    and, with ``profile``, a profiler trace of the first tick that can only
+    decode (left out of the decode-only time)."""
     from repro_torch.models.model import init_params
     from repro_torch.models.quantize import quantize_model_params
     from repro_torch.serving import ServeConfig, ServeScheduler
@@ -1139,61 +1205,189 @@ def serve(torch, dev, cfg, trace, *, quant, kernel, stats, counters,
     params = init_params(cfg, generator=torch.Generator(
         device=dev).manual_seed(0), device=dev)
     if quant:
-        params = quantize_model_params(cfg, params)
+        params = quantize_model_params(cfg, params, pack=pack)
     sc = ServeConfig(**SERVE, attn_kernel="pallas" if kernel else "off",
                      quant="pallas" if quant else False, with_stats=stats,
                      kv_quant=kv_quant, kv_bits=KV_BITS)
     sched = ServeScheduler(cfg, params, sc)
-    fwd = {"decode": 0, "chunk": 0, "prefill": 0}
+    progs = sched.programs()
 
-    def counted(fn, key):
-        def call(*a):
-            fwd[key] += 1
-            return fn(*a)
-        return call
+    def calls(*names):
+        return sum(progs[n].calls for n in names)
 
-    sched._step = counted(sched._step, "decode")
-    sched._chunk_step = counted(sched._chunk_step, "chunk")
-    sched._slot_prefill = counted(sched._slot_prefill, "prefill")
     for p in trace:
         sched.submit(p, max_new=SERVE_NEW)
     torch.cuda.synchronize()
     for c in counters:
         c.launches = 0
+
     def generated():
         return (sum(len(sl.tokens) for sl in sched._slots if sl is not None)
                 + sum(len(r.tokens) for r in sched._results.values()))
 
     # decode-only ticks (no admission prefill, no chunk): their tokens and
     # host-clock time (step_tick ends in the tick's one synchronisation)
-    decode = {"tokens": 0, "s": 0.0, "ticks": 0}
+    run = {"tables": [], "decode_only": {"tokens": 0, "s": 0.0, "ticks": 0}}
+    dec = run["decode_only"]
     t0 = time.perf_counter()
     while sched.pending:
-        before = (generated(), fwd["chunk"], fwd["prefill"])
+        before = (generated(), calls("chunk", "mixed"), calls("prefill"))
+        # the first tick that can only decode: nothing queued, no slot
+        # prefilling
+        quiet = not sched._queue and all(
+            sl is None or sl.phase == "decode" for sl in sched._slots)
+        profiled = profile is not None and quiet and "share" not in profile
+        slots = int(sched._active.sum())
         t1 = time.perf_counter()
-        check(sched.step_tick(), "a tick found nothing to do")
+        if profiled:
+            profile.update(profiled_tick(torch, sched), slots=slots)
+        else:
+            check(sched.step_tick(), "a tick found nothing to do")
         dt = time.perf_counter() - t1
-        if before[1:] == (fwd["chunk"], fwd["prefill"]):
-            decode["tokens"] += generated() - before[0]
-            decode["s"] += dt
-            decode["ticks"] += 1
+        if profiled:
+            run["profiled_s"] = dt
+        if not profiled and before[1:] == (calls("chunk", "mixed"),
+                                           calls("prefill")):
+            dec["tokens"] += generated() - before[0]
+            dec["s"] += dt
+            dec["ticks"] += 1
+        run["tables"].append(sched._table.copy())
         if on_tick is not None:
             on_tick(sched)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    fwd["decode_only"] = decode
+    # the profiled tick's tracing cost is not the system's
+    wall = time.perf_counter() - t0 - run.get("profiled_s", 0.0)
+    ts = sched.tick_steps
+    fwd = {"decode": ts * calls("tick", "mixed"),
+           "chunk": calls("chunk", "mixed"), "prefill": calls("prefill")}
+    replayed = {}
+    for prog in progs.values():
+        for k, n in prog.replayed_launches().items():
+            replayed[k] = replayed.get(k, 0) + n
+    run["replayed"] = replayed
     results = sched.run()
     check(len(results) == len(trace), f"{len(results)} results")
     for r in results:
         check(r.finish_reason == "length" and len(r.tokens) == SERVE_NEW
               and all(0 <= t < cfg.vocab_size for t in r.tokens),
               f"request {r.rid}: {r.finish_reason}, {len(r.tokens)} tokens")
-    return results, sched, fwd, wall
+    return results, sched, fwd, wall, run
+
+
+def profiled_tick(torch, sched) -> dict:
+    """One tick under ``torch.profiler`` (device activity only): its
+    host-clock ms, the device time of every kernel, memcpy and memset in
+    it, their share of the tick (device busy), and the top five device
+    ops by time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        check(sched.step_tick(), "a tick found nothing to do")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def us(e):
+        return float(getattr(e, "self_device_time_total", None)
+                     or getattr(e, "self_cuda_time_total", 0.0))
+
+    ops = [e for e in prof.key_averages() if e.device_type == cuda]
+    busy = sum(us(e) for e in ops) / 1e3
+    top = sorted(ops, key=us, reverse=True)[:5]
+    return {"wall_ms": wall, "busy_ms": busy, "share": busy / wall,
+            "kernels": sum(e.count for e in ops),
+            "top": [(e.key[:60], us(e) / 1e3, e.count) for e in top]}
+
+
+def tick_replay_ms(torch, sched, reps: int = 5) -> float:
+    """Device time of one replay of the scheduler's captured tick graph
+    (CUDA events over ``reps`` replays, after the trace drained: the
+    replays rewrite junk rows of an idle pool)."""
+    (entry,) = sched.programs()["tick"].entries()
+    entry.graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        entry.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def program_report(sched, label: str) -> None:
+    """Print ``compile_stats()``, each captured graph's capture ms, replays,
+    launch census and kernel-node count; check the reference's bounds."""
+    from repro_torch.serving import engine
+
+    stats = sched.compile_stats()
+    print(f"    {label} compile_stats {stats}")
+    # the trace never leaves a tick with chunk rows and no decode row, so
+    # the chunk-only program may never run; the mixed one does
+    check(stats["tick"] == 1 and stats.get("chunk", 0) <= 1
+          and stats.get("mixed", 0) <= 1
+          and stats["prefill"] <= len(SERVE["buckets"]),
+          f"compile_stats {stats} break the reference's bounds")
+    for name, prog in sched.programs().items():
+        for i, e in enumerate(prog.entries()):
+            check(e.graph is not None and e.replays == e.calls,
+                  f"{name}[{i}] ran {e.calls} times, replayed {e.replays}")
+            census = {k: v for k, v in e.census.items() if v}
+            nodes = engine.graph_nodes(e)
+            print(f"      {name}[{i}] {tuple(e.inputs[0].shape)}: capture "
+                  f"{e.capture_ms:.1f} ms, {e.replays} replays, census "
+                  f"{census}, graph kernel nodes "
+                  + (f"{nodes[0]} of {nodes[1]} nodes" if nodes else
+                     "not available"))
+
+
+def held_equal(label, graph, eager) -> None:
+    """Graph run against its engine.eager() run: tokens, per-request stats
+    and every tick's page table equal."""
+    import numpy as np
+
+    (gres, gsched, gfwd, _, grun), (eres, _, efwd, _, erun) = graph, eager
+    check([r.tokens for r in gres] == [r.tokens for r in eres],
+          f"{label}: graph tokens differ from engine.eager()'s")
+    for a, b in zip(gres, eres):
+        for key in ("plane_traffic_fraction", "element_traffic_fraction"):
+            x, y = getattr(a, key), getattr(b, key)
+            check(repr(x) == repr(y), f"{label}: request {a.rid} {key} "
+                  f"{x!r} (graph) != {y!r} (eager)")
+    check(gfwd == efwd and len(grun["tables"]) == len(erun["tables"])
+          and all(np.array_equal(a, b) for a, b in zip(grun["tables"],
+                                                       erun["tables"])),
+          f"{label}: forwards {gfwd} / {efwd} or page tables differ")
+
+
+def tok_s(label, res, wall, run, sched) -> dict:
+    """Print a run's whole-trace and decode-only tok/s and ms per decode
+    step; returns them."""
+    total = sum(len(r.tokens) for r in res)
+    dec = run["decode_only"]
+    steps = dec["ticks"] * sched.tick_steps
+    capture = sum(e.capture_ms or 0.0 for p in sched.programs().values()
+                  for e in p.entries()) / 1e3
+    out = {"tok_s": total / wall,
+           "decode_tok_s": dec["tokens"] / max(dec["s"], 1e-9),
+           "step_ms": dec["s"] / max(steps, 1) * 1e3, "capture_s": capture}
+    print(f"    {label}: {total} tokens in {wall:.3f} s = {out['tok_s']:.2f} "
+          f"tok/s (prefill and captures included, {capture:.3f} s of "
+          f"captures; the profiled tick's "
+          f"{run.get('profiled_s', 0.0):.3f} s left out); decode-only "
+          f"ticks: {dec['tokens']} tokens in "
+          f"{dec['s']:.3f} s = {out['decode_tok_s']:.2f} tok/s over "
+          f"{dec['ticks']} ticks, {out['step_ms']:.3f} ms per decode step")
+    return out
 
 
 def phase7(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models.attention import _paged_gather
+    from repro_torch.serving import engine
 
     cfg = get_config("smollm-135m")
     trace = serve_trace(cfg.vocab_size)
@@ -1208,8 +1402,10 @@ def phase7(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
     # the K3 runs is also held against the dense-gather oracle on the same
     # inputs (the gather path's own arithmetic); the LOG2 codes of the two
     # outputs — what the quantized path's wo projection reads next — are
-    # compared too
-    c32 = cfg.replace(dtype=torch.float32)
+    # compared too.  The audit synchronises with the host, so these runs
+    # go through engine.eager(), at the first F32_LAYERS of the 30 layers
+    # (to keep the script's time)
+    c32 = cfg.replace(dtype=torch.float32, n_layers=F32_LAYERS)
     for quant in (False, True):
         toks = {}
         for kernel in (False, True):
@@ -1218,21 +1414,22 @@ def phase7(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
             if kernel:
                 pa_ops.paged_decode_attention = audited(torch, inner, audit)
             try:
-                res, _, fwd, wall = serve(torch, dev, c32, trace,
-                                          quant=quant, kernel=kernel,
-                                          stats=False, counters=kernels)
+                with engine.eager():
+                    res, _, fwd, wall, _ = serve(
+                        torch, dev, c32, trace, quant=quant, kernel=kernel,
+                        stats=False, counters=kernels)
             finally:
                 pa_ops.paged_decode_attention = inner
-            want = cfg.n_layers * fwd["decode"] if kernel else 0
+            want = c32.n_layers * fwd["decode"] if kernel else 0
             check(pa_ops.paged_attention.launches == want,
                   f"K3 launched {pa_ops.paged_attention.launches} times, "
                   f"expected {want}")
             check(audit["calls"] == want and audit["bad"] == 0,
                   f"K3 against the gather oracle: {audit}")
             toks[kernel] = [r.tokens for r in res]
-            fwd.pop("decode_only")
-            print(f"  f32 {'quant' if quant else 'float'} "
-                  f"{'K3' if kernel else 'gather'}: {wall:.3f} s, {fwd}"
+            print(f"  f32 {'quant' if quant else 'float'}, {c32.n_layers} "
+                  f"layers, {'K3' if kernel else 'gather'} (engine.eager()): "
+                  f"{wall:.3f} s, {fwd}"
                   + (f"; every K3 call within f32 tolerance of the gather "
                      f"oracle ({audit['calls']} calls, max |diff| "
                      f"{audit['err']:.3e}), LOG2 codes of the output "
@@ -1253,7 +1450,8 @@ def phase7(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
               f"{len(trace) - sum(same)} requests with no LOG2 code of an "
               f"attention output differing")
 
-    # bf16 K3 float, then the main path: K3 quantized with stats
+    # bf16 K3 float, then the main path: K3 quantized with stats; each as
+    # CUDA-graph programs, then the same bodies under engine.eager()
     best = {"touched": -1}
 
     def on_tick(sched):
@@ -1265,51 +1463,89 @@ def phase7(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
                         k=sched._pool["layers"][0]["k"].clone(),
                         v=sched._pool["layers"][0]["v"].clone())
 
-    out = {}
+    out = {"serve": {}}
+    per_fwd = cfg.n_layers * len(PROJ)
     for quant in (False, True):
-        res, sched, fwd, wall = serve(
-            torch, dev, cfg, trace, quant=quant, kernel=True, stats=quant,
-            counters=kernels, on_tick=on_tick if quant else None)
-        launches = {k.__name__: k.launches for k in kernels}
-        dec = fwd.pop("decode_only")
-        per_fwd = cfg.n_layers * len(PROJ)
-        n_fwd = sum(fwd.values())
-        check(launches["paged_attention"] == cfg.n_layers * fwd["decode"],
-              f"K3 launches {launches['paged_attention']} != "
-              f"{cfg.n_layers} x {fwd['decode']} decode forwards")
-        if quant:
-            check(launches["bitplane_matmul"] == per_fwd * n_fwd
-                  and launches["log2quant"] == 0,
-                  f"K2 launched {launches['bitplane_matmul']} times, "
-                  f"expected {per_fwd} x {n_fwd} forwards, and K1 "
-                  f"{launches['log2quant']}, expected 0")
-        else:
-            check(launches["log2quant"] == launches["bitplane_matmul"] == 0,
-                  "the float run launched a quantized kernel")
-        total = sum(len(r.tokens) for r in res)
-        st = sched.prefix_cache_stats()
-        check(st["cached_tokens"] > 0 and st["cached_tokens"] % 16 != 0,
-              f"prefix cache stats {st}: expected whole-page and "
-              f"copy-on-write hits")
         tag = "quant+stats" if quant else "float"
-        print(f"  bf16 {tag} K3: {total} tokens in {wall:.3f} s = "
-              f"{total / wall:.1f} tok/s (prefill included, eager); "
-              f"decode-only ticks: {dec['tokens']} tokens in "
-              f"{dec['s']:.3f} s = {dec['tokens'] / max(dec['s'], 1e-9):.1f}"
-              f" tok/s over {dec['ticks']} ticks; forwards {fwd}; launches "
-              f"{launches}")
-        print(f"    prefix cache: hit_rate {st['hit_rate']:.6f}, "
-              f"cached_tokens {st['cached_tokens']:.0f}/"
-              f"{st['prompt_tokens']:.0f}, lookups hit "
-              f"{st['lookup_hits']:.0f}/{st['lookups']:.0f}, pages_in_use "
-              f"{st['pages_in_use']:.0f}")
+        runs, profiles = {}, {}
+        for mode in ("graph", "eager"):
+            profiles[mode] = {} if quant else None
+            with (engine.eager() if mode == "eager"
+                  else contextlib.nullcontext()):
+                runs[mode] = serve(
+                    torch, dev, cfg, trace, quant=quant, kernel=True,
+                    stats=quant, counters=kernels, profile=profiles[mode],
+                    on_tick=on_tick if quant and mode == "graph" else None)
+            res, sched, fwd, wall, run = runs[mode]
+            launches = (run["replayed"] if mode == "graph" else
+                        {k.__name__: k.launches for k in kernels})
+            n_fwd = sum(fwd.values())
+            check(launches["paged_attention"] == cfg.n_layers * fwd["decode"],
+                  f"{mode}: K3 launches {launches['paged_attention']} != "
+                  f"{cfg.n_layers} x {fwd['decode']} decode forwards")
+            if quant:
+                check(launches["bitplane_matmul"] == per_fwd * n_fwd
+                      and launches["log2quant"] == 0,
+                      f"{mode}: K2 launched {launches['bitplane_matmul']} "
+                      f"times, expected {per_fwd} x {n_fwd} forwards, and K1 "
+                      f"{launches['log2quant']}, expected 0")
+            else:
+                check(launches["log2quant"] == launches["bitplane_matmul"]
+                      == 0, f"{mode}: the float run launched a quantized "
+                      f"kernel")
+            counted = {k.__name__: k.launches for k in kernels}
+            print(f"  bf16 {tag} K3, {mode}: forwards {fwd}; launches "
+                  + (f"replayed (capture census x replays) {launches}; "
+                     f"counted by the wrappers in the warm-ups and "
+                     f"captures {counted}" if mode == "graph"
+                     else f"{launches}"))
+            out["serve"][f"{tag}/{mode}"] = tok_s(f"bf16 {tag} {mode}",
+                                                  res, wall, run, sched)
+            if mode == "graph":
+                program_report(sched, f"bf16 {tag} graph")
+                rep = tick_replay_ms(torch, sched)
+                out["serve"][f"{tag}/graph"]["replay_step_ms"] = \
+                    rep / sched.tick_steps
+                print(f"    tick graph replayed alone: {rep:.3f} ms device "
+                      f"time = {rep / sched.tick_steps:.3f} ms per decode "
+                      f"step (CUDA events, {card})")
+                if quant:
+                    out["launches"] = launches["paged_attention"]
+            st = sched.prefix_cache_stats()
+            check(st["cached_tokens"] > 0 and st["cached_tokens"] % 16 != 0,
+                  f"prefix cache stats {st}: expected whole-page and "
+                  f"copy-on-write hits")
+            if mode == "graph":
+                print(f"    prefix cache: hit_rate {st['hit_rate']:.6f}, "
+                      f"cached_tokens {st['cached_tokens']:.0f}/"
+                      f"{st['prompt_tokens']:.0f}, lookups hit "
+                      f"{st['lookup_hits']:.0f}/{st['lookups']:.0f}, "
+                      f"pages_in_use {st['pages_in_use']:.0f}")
+            if quant and mode == "graph":
+                tile = sum(r.plane_traffic_fraction for r in res) / len(res)
+                elem = sum(r.element_traffic_fraction for r in res) / len(res)
+                check(0 < elem <= tile <= 1,
+                      f"traffic fractions {tile} {elem}")
+                print(f"    mean per-request plane_traffic_fraction "
+                      f"{tile:.6f}, element_traffic_fraction {elem:.6f}")
+        held_equal(f"bf16 {tag}", runs["graph"], runs["eager"])
+        print(f"  bf16 {tag}: the graph run equals its engine.eager() run "
+              f"in tokens, per-request stats, forwards and every tick's "
+              f"page table; decode step "
+              f"{out['serve'][f'{tag}/eager']['step_ms']:.3f} ms eager -> "
+              f"{out['serve'][f'{tag}/graph']['step_ms']:.3f} ms graph "
+              f"(host clock)")
         if quant:
-            tile = sum(r.plane_traffic_fraction for r in res) / len(res)
-            elem = sum(r.element_traffic_fraction for r in res) / len(res)
-            check(0 < elem <= tile <= 1, f"traffic fractions {tile} {elem}")
-            print(f"    mean per-request plane_traffic_fraction {tile:.6f}, "
-                  f"element_traffic_fraction {elem:.6f}")
-            out["launches"] = launches["paged_attention"]
+            for mode in ("eager", "graph"):
+                pr = profiles[mode]
+                check("share" in pr, f"{mode}: no tick was profiled")
+                print(f"    profiled decode-only tick, {mode} ({pr['slots']} "
+                      f"slots, {card}): {pr['wall_ms']:.3f} ms on the host "
+                      f"clock, device busy {pr['busy_ms']:.3f} ms "
+                      f"({pr['kernels']} device ops) = share "
+                      f"{pr['share']:.4f}; top five device ops "
+                      f"{[(n, round(ms, 4), c) for n, ms, c in pr['top']]}")
+                out["serve"][f"{tag}/{mode}"]["busy_share"] = pr["share"]
 
     # K3 on the tick that touched most pages: real pool, table, lengths
     lens, table = best["lens"].to(torch.int32), best["table"]
@@ -1566,6 +1802,7 @@ def phase9(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core.logquant import dequantize_page_codes
     from repro_torch.models import attention as attn
+    from repro_torch.serving import engine
     from repro_torch.serving.kvpool import (blocks_for_tokens, page_kv_bytes,
                                             tail_ring_bytes)
 
@@ -1577,8 +1814,10 @@ def phase9(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
     print(f"phase 9: ServeScheduler as phase 7 with kv_quant=True, "
           f"kv_bits={KV_BITS}")
 
-    # f32, float projections, cut in depth: the quantized-gather read and K4
-    c32 = cfg.replace(dtype=torch.float32, n_layers=F32_KVQ_LAYERS)
+    # f32, float projections, cut in depth: the quantized-gather read and
+    # K4, through engine.eager() (the audit and the digests synchronise
+    # with the host)
+    c32 = cfg.replace(dtype=torch.float32, n_layers=F32_LAYERS)
     toks, digests = {}, {}
     inner_attn, inner_write = (pa_ops.paged_decode_attention_quant,
                                attn._quant_paged_write)
@@ -1590,9 +1829,10 @@ def phase9(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
             pa_ops.paged_decode_attention_quant = audited_quant(
                 torch, inner_attn, audit)
         try:
-            res, _, fwd, wall = serve(torch, dev, c32, trace, quant=False,
-                                      kernel=kernel, stats=False,
-                                      counters=kernels, kv_quant=True)
+            with engine.eager():
+                res, _, fwd, wall, _ = serve(
+                    torch, dev, c32, trace, quant=False, kernel=kernel,
+                    stats=False, counters=kernels, kv_quant=True)
         finally:
             pa_ops.paged_decode_attention_quant = inner_attn
             attn._quant_paged_write = inner_write
@@ -1604,9 +1844,8 @@ def phase9(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
         check(audit["calls"] == want and audit["bad"] == 0,
               f"K4 against the quantized gather: {audit}")
         toks[kernel] = [r.tokens for r in res]
-        fwd.pop("decode_only")
         print(f"  f32 float kv_quant, {c32.n_layers} layers, "
-              f"{'K4' if kernel else 'gather'}: "
+              f"{'K4' if kernel else 'gather'} (engine.eager()): "
               f"{wall:.3f} s, {fwd}"
               + (f"; every K4 call within f32 tolerance of the quantized "
                  f"gather math ({audit['calls']} calls, max |diff| "
@@ -1626,10 +1865,29 @@ def phase9(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
           f"{len(trace) - sum(same)} requests with every K/V code written "
           f"equal")
 
-    # bf16, quant=True, K4: the slice's main path
+    # bf16, quant=True on packed planes (the deploy format), K4: the
+    # slice's main path as CUDA-graph programs, then the same bodies under
+    # engine.eager(); after every tick a digest of the code and scale
+    # pages (the trash page left out)
     best = {"touched": -1}
+    weights = {}
 
-    def on_tick(sched):
+    def tick_digest(sched, out):
+        layer = sched._pool["layers"][0]
+        sums = []
+        for k in ("k_codes", "v_codes", "k_scale", "v_scale"):
+            flat = layer[k][:, 1:].reshape(-1)
+            w = weights.get(flat.numel())
+            if w is None:
+                w = weights[flat.numel()] = torch.arange(
+                    flat.numel(), device=flat.device) % 65521 + 1
+            sums.append((flat.long() * w).sum())
+        out.append(torch.stack(sums))
+
+    def on_tick(sched, out, snapshot):
+        tick_digest(sched, out)
+        if not snapshot:
+            return
         lens = sched._pool["length"].cpu() + 1
         touched = int(((lens - 1) // pl).sum())
         if touched > best["touched"]:
@@ -1639,31 +1897,58 @@ def phase9(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
                         **{k: layer[k].clone() for k in (
                             "k_codes", "k_scale", "v_codes", "v_scale")})
 
-    res, sched, fwd, wall = serve(torch, dev, cfg, trace, quant=True,
-                                  kernel=True, stats=False, counters=kernels,
-                                  on_tick=on_tick, kv_quant=True)
-    launches = {k.__name__: k.launches for k in kernels}
-    dec = fwd.pop("decode_only")
-    n_fwd = sum(fwd.values())
-    check(launches["paged_attention_quant"] == cfg.n_layers * fwd["decode"]
-          and launches["paged_attention"] == 0,
-          f"K4 launches {launches} != {cfg.n_layers} x {fwd['decode']} "
-          f"decode forwards")
-    check(launches["bitplane_matmul"] == cfg.n_layers * len(PROJ) * n_fwd
-          and launches["log2quant"] == 0,
-          f"K2 launched {launches['bitplane_matmul']} times, expected "
-          f"{cfg.n_layers * len(PROJ)} x {n_fwd} forwards, and K1 "
-          f"{launches['log2quant']}, expected 0")
-    total = sum(len(r.tokens) for r in res)
-    st = sched.prefix_cache_stats()
+    runs, tick_digests = {}, {}
+    for mode in ("graph", "eager"):
+        tick_digests[mode] = []
+        with (engine.eager() if mode == "eager"
+              else contextlib.nullcontext()):
+            runs[mode] = serve(
+                torch, dev, cfg, trace, quant=True, kernel=True, stats=False,
+                counters=kernels, kv_quant=True, pack=True,
+                on_tick=lambda sc, m=mode: on_tick(sc, tick_digests[m],
+                                                   m == "graph"))
+        res, sched, fwd, wall, run = runs[mode]
+        launches = (run["replayed"] if mode == "graph" else
+                    {k.__name__: k.launches for k in kernels})
+        n_fwd = sum(fwd.values())
+        check(launches["paged_attention_quant"] == cfg.n_layers
+              * fwd["decode"] and launches["paged_attention"] == 0,
+              f"{mode}: K4 launches {launches} != {cfg.n_layers} x "
+              f"{fwd['decode']} decode forwards")
+        check(launches["bitplane_matmul"] == cfg.n_layers * len(PROJ) * n_fwd
+              and launches["log2quant"] == 0,
+              f"{mode}: K2 launched {launches['bitplane_matmul']} times, "
+              f"expected {cfg.n_layers * len(PROJ)} x {n_fwd} forwards, and "
+              f"K1 {launches['log2quant']}, expected 0")
+        print(f"  bf16 quant (packed planes) kv_quant K4, {mode}: forwards "
+              f"{fwd}; launches "
+              + ("replayed (capture census x replays) " if mode == "graph"
+                 else "") + f"{launches}")
+        if mode == "graph":
+            serve_out = {"graph": tok_s("graph", res, wall, run,
+                                        sched)}
+            program_report(sched, "graph")
+            rep = tick_replay_ms(torch, sched)
+            serve_out["graph"]["replay_step_ms"] = rep / sched.tick_steps
+            print(f"    tick graph replayed alone: {rep:.3f} ms device time "
+                  f"= {rep / sched.tick_steps:.3f} ms per decode step (CUDA "
+                  f"events, {card})")
+            out_launches = launches["paged_attention_quant"]
+            st = sched.prefix_cache_stats()
+        else:
+            serve_out["eager"] = tok_s("eager", res, wall, run, sched)
+    held_equal("phase 9 bf16", runs["graph"], runs["eager"])
+    gd, ed = (torch.stack(tick_digests[m]).cpu() for m in ("graph", "eager"))
+    check(torch.equal(gd, ed), "phase 9: the graph run's code and scale "
+          "pages differ from engine.eager()'s after some tick")
+    print(f"  bf16 kv_quant: the graph run equals its engine.eager() run in "
+          f"tokens, forwards, every tick's page table and every tick's code "
+          f"and scale pages ({len(gd)} digests); decode step "
+          f"{serve_out['eager']['step_ms']:.3f} ms eager -> "
+          f"{serve_out['graph']['step_ms']:.3f} ms graph (host clock)")
     check(st["cached_tokens"] > 0 and st["cached_tokens"] % pl != 0,
           f"prefix cache stats {st}: expected whole-page and copy-on-write "
           f"hits")
-    print(f"  bf16 quant kv_quant K4: {total} tokens in {wall:.3f} s = "
-          f"{total / wall:.1f} tok/s (prefill included, eager); decode-only "
-          f"ticks: {dec['tokens']} tokens in {dec['s']:.3f} s = "
-          f"{dec['tokens'] / max(dec['s'], 1e-9):.1f} tok/s over "
-          f"{dec['ticks']} ticks; forwards {fwd}; launches {launches}")
     print(f"    prefix cache: hit_rate {st['hit_rate']:.6f}, cached_tokens "
           f"{st['cached_tokens']:.0f}/{st['prompt_tokens']:.0f}, lookups hit "
           f"{st['lookup_hits']:.0f}/{st['lookups']:.0f}, pages_in_use "
@@ -1774,7 +2059,7 @@ def phase9(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
           f"scaled_dot_product_attention {lib_ms:.4f} ms; dequantize the "
           f"whole pool, then _paged_gather + scaled_dot_product_attention "
           f"{pool_ms:.4f} ms")
-    return dict(launches=launches["paged_attention_quant"], ms=ms,
+    return dict(launches=out_launches, serve=serve_out, ms=ms,
                 plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=lib_ms, context_whole_pool_ms=pool_ms,

@@ -22,8 +22,11 @@ package's::
         [--prefix-cache] [--attn-kernel] [--attn-splits N] [--quant] \
         [--kv-quant [BITS]] [--config serve.json] [--dump-config [PATH]]
 
-The device defaults to the card; ``--device cpu`` runs the plain-PyTorch
-path on the host.
+The device defaults to the card, where every serving step runs as a
+CUDA-graph replay (its first call captures it: the one-shot mode times a
+second, replayed generate after the capture); ``--device cpu`` runs the
+same program bodies eagerly with the kernels' plain versions on the host.
+Continuous mode prints the scheduler's ``compile_stats()``.
 """
 
 from __future__ import annotations
@@ -37,14 +40,19 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke
-from repro_torch.models.model import init_caches, init_params
+from repro_torch.models.model import init_params
 from repro_torch.models.quantize import quantize_model_params
-from repro_torch.serving.engine import make_decode_loop, make_prefill_step
+from repro_torch.serving.engine import greedy_generate
 
 
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _path(dev: torch.device) -> str:
+    return ("CUDA-graph replay, captures included" if dev.type == "cuda"
+            else "eager, host")
 
 
 def build_serve_config(args):
@@ -129,7 +137,8 @@ def _serve_continuous(cfg, params, args, dev):
     print(f"[serve] {cfg.name} on {dev}: continuous batching{tag} — "
           f"{len(results)} requests, {config.max_slots} slots, "
           f"tick={config.tick_steps}: {total} tokens in {dt:.3f}s "
-          f"({total / max(dt, 1e-9):.1f} tok/s, eager)")
+          f"({total / max(dt, 1e-9):.1f} tok/s, {_path(dev)})")
+    print(f"[serve] compile_stats: {sched.compile_stats()}")
     served = [r for r in results if r.finish_reason != "rejected"]
     if served:
         ttft = [r.first_token_time - r.submit_time for r in served]
@@ -234,21 +243,22 @@ def main(argv=None):
         params = quantize_model_params(cfg, params, pack=args.pack)
     if args.continuous:
         return _serve_continuous(cfg, params, args, dev)
-    caches = init_caches(cfg, args.batch, args.prompt_len + args.new_tokens,
-                         dtype=cfg.dtype, device=dev)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=dev, dtype=torch.int32)
 
-    prefill = make_prefill_step(cfg, args.quant)
-    decode = make_decode_loop(cfg, args.new_tokens, quant=args.quant,
-                              eos_id=args.eos_id, with_stats=args.quant)
+    def generate():
+        out = greedy_generate(cfg, params, prompt, args.new_tokens,
+                              quant=args.quant, eos_id=args.eos_id,
+                              with_stats=args.quant, device=dev)
+        return out if args.quant else (out, None)
+
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = prefill(params, {"tokens": prompt}, caches)
+    generate()                       # the first call captures the program
     _sync(dev)
-    t_prefill = time.perf_counter() - t0
+    t_first = time.perf_counter() - t0
     t1 = time.perf_counter()
-    toks, stats = decode(params, caches, logits, gen)
+    toks, stats = generate()
     _sync(dev)
     t_decode = time.perf_counter() - t1
 
@@ -265,10 +275,11 @@ def main(argv=None):
         total_new = int(first.sum())
         steps = int(first.max()) if args.new_tokens else 0
     print(f"[serve] {cfg.name} on {dev}: prefill {args.batch}x"
-          f"{args.prompt_len} in {t_prefill:.3f}s; {total_new} tokens "
-          f"decoded in {t_decode:.3f}s "
-          f"({total_new / max(t_decode, 1e-9):.1f} tok/s, eager)")
-    if stats is not None and steps:
+          f"{args.prompt_len} + decode as one program, first call "
+          f"{t_first:.3f}s; {total_new} tokens in {t_decode:.3f}s "
+          f"({total_new / max(t_decode, 1e-9):.1f} tok/s, {_path(dev)}, "
+          f"prefill included)")
+    if args.quant and steps:
         tile_all = stats["plane_traffic_fraction"][:steps].cpu()
         elem_all = stats["element_traffic_fraction"][:steps].cpu()
         ran = tile_all > 0

@@ -12,7 +12,8 @@ dense ``KVCache`` takes a scalar length (one-shot serving) or per-slot
 ``(B,)`` lengths (the continuous-batching slot pool), whose per-row writes
 clamp their start to ``max_len - S`` as ``lax.dynamic_update_slice``
 does; the paged ``PagedKVCache`` scatters rows into a shared page pool at
-(page, offset) and redirects masked rows to the trash page 0; the
+(page, offset) and redirects masked rows to the trash page 0, whose
+colliding writes resolve as a serial scatter does (last row wins); the
 log2-quantized ``QuantPagedKVCache`` stores each row as packed codes under
 its page's power-of-two scale, plus a dense tail ring of each slot's two
 newest pages.  Decode over a paged pool either gathers the slot's pages
@@ -167,22 +168,52 @@ class QuantPagedKVCache(NamedTuple):
     length: torch.Tensor      # (B,) int32 per-slot valid lengths
 
 
-def _paged_write(pool: torch.Tensor, table: torch.Tensor, new: torch.Tensor,
-                 pos: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
-    """Scatter ``new`` (B, S, G, D) rows into the page pool, in place.
+def last_writer(dest: torch.Tensor, size: int) -> torch.Tensor:
+    """For each of N scatter rows with destinations ``dest`` (N,) in
+    ``[0, size)``, the index of the last row that writes the same
+    destination.  Scattering every row's value from its last writer
+    resolves duplicate destinations as a serial scatter does (the last
+    row wins), on every device and run alike: CUDA's ``index_put_``
+    lets racing duplicates land in any order, and a free slot reads the
+    trash page such duplicates write."""
+    order = torch.arange(dest.numel(), device=dest.device)
+    last = torch.full((size,), -1, dtype=torch.long, device=dest.device)
+    last.scatter_reduce_(0, dest, order, reduce="amax")
+    return last[dest]
 
-    ``pos`` (B, S) are absolute token positions (page ``table[b, pos //
-    page_len]``, offset ``pos % page_len``); rows where ``keep`` is False
-    or whose block lies past the table go to the trash page, offset 0."""
-    page_len = pool.shape[1]
+
+class PageSlots(NamedTuple):
+    """Where an S-row paged write lands: ``page``/``off`` (B, S), rows
+    outside the slot's pages or masked at (trash page, 0); ``in_alloc``
+    (B, S); ``src`` (B*S,) each row's last writer (:func:`last_writer`)."""
+    page: torch.Tensor
+    off: torch.Tensor
+    in_alloc: torch.Tensor
+    src: torch.Tensor
+
+
+def page_slots(table: torch.Tensor, pos: torch.Tensor, keep: torch.Tensor,
+               n_pages: int, page_len: int) -> PageSlots:
+    """Slots of rows at absolute positions ``pos`` (B, S): page
+    ``table[b, pos // page_len]``, offset ``pos % page_len``; rows where
+    ``keep`` is False or whose block lies past the table go to the trash
+    page, offset 0."""
     nb = table.shape[1]
     blk = torch.clamp(pos // page_len, 0, nb - 1).long()
     page = torch.gather(table.long(), 1, blk)
     in_alloc = keep & (pos // page_len < nb)
     page = torch.where(in_alloc, page, 0)
     off = torch.where(in_alloc, pos % page_len, 0).long()
-    vals = new.reshape((-1,) + tuple(new.shape[2:])).to(pool.dtype)
-    pool[page.reshape(-1), off.reshape(-1)] = vals
+    src = last_writer((page * page_len + off).reshape(-1), n_pages * page_len)
+    return PageSlots(page, off, in_alloc, src)
+
+
+def _paged_write(pool: torch.Tensor, slots: PageSlots,
+                 new: torch.Tensor) -> torch.Tensor:
+    """Scatter ``new`` (B, S, G, D) rows into the page pool at ``slots``,
+    in place."""
+    vals = new.reshape((-1,) + tuple(new.shape[2:]))[slots.src]
+    pool[slots.page.reshape(-1), slots.off.reshape(-1)] = vals.to(pool.dtype)
     return pool
 
 
@@ -190,7 +221,7 @@ def _quant_paged_write(codes: torch.Tensor, scale: torch.Tensor,
                        tail: torch.Tensor, table: torch.Tensor,
                        new: torch.Tensor, pos: torch.Tensor,
                        keep: torch.Tensor, start: torch.Tensor, adv,
-                       n_bits: int) -> None:
+                       n_bits: int, slots: Optional[PageSlots] = None) -> None:
     """Quantize ``new`` (B, S, G, D) rows at ``pos`` (B, S) into the code
     pool ``(P, page_len, G, D)``, the scales ``(P, G)`` and the tail ring
     ``(B, 2*page_len + 1, G, D)``, in place.  ``start`` (B,) is the length
@@ -204,18 +235,16 @@ def _quant_paged_write(codes: torch.Tensor, scale: torch.Tensor,
     * tail ring: rows within the newest ``2*page_len`` positions land at
       ``pos % (2*page_len)``; older and masked rows at the junk bin.
 
-    Masked rows go to the trash page as in :func:`_paged_write`.  Writes
-    that land on the trash page or the junk bin may collide; nothing
-    reads them unmasked."""
+    Masked rows go to the trash page as in :func:`page_slots` (``slots``,
+    when the caller already has them).  Writes that land on the trash
+    page collide and resolve as :func:`last_writer` says; those that land
+    on the junk bin collide too, and nothing reads that."""
     page_len = codes.shape[1]
-    nb = table.shape[1]
     b, s = pos.shape
     g, d = new.shape[2:]
-    blk = torch.clamp(pos // page_len, 0, nb - 1).long()
-    page = torch.gather(table.long(), 1, blk)
-    in_alloc = keep & (pos // page_len < nb)
-    page = torch.where(in_alloc, page, 0)
-    off = torch.where(in_alloc, pos % page_len, 0).long()
+    if slots is None:
+        slots = page_slots(table, pos, keep, codes.shape[0], page_len)
+    page, off, in_alloc = slots.page, slots.off, slots.in_alloc
 
     start = start.expand(b)
     p0 = pos - pos % page_len                     # each row's page start
@@ -225,10 +254,10 @@ def _quant_paged_write(codes: torch.Tensor, scale: torch.Tensor,
     own_se = scale_exponent(row0, dim=-1)         # (B, S, G)
     se = torch.where(own[..., None], own_se, scale[page])
     qcodes = quantize_page_codes(new, se[..., None], n_bits)
-    codes[page.reshape(-1), off.reshape(-1)] = qcodes.reshape(-1, g, d).to(
-        codes.dtype)
-    sp = torch.where(in_alloc & (pos % page_len == 0), page, 0)
-    scale[sp.reshape(-1)] = own_se.reshape(-1, g)
+    codes[page.reshape(-1), off.reshape(-1)] = qcodes.reshape(
+        -1, g, d)[slots.src].to(codes.dtype)
+    sp = torch.where(in_alloc & (pos % page_len == 0), page, 0).reshape(-1)
+    scale[sp] = own_se.reshape(-1, g)[last_writer(sp, scale.shape[0])]
 
     ring = 2 * page_len
     in_ring = in_alloc & (pos >= (start + adv)[:, None] - ring)
@@ -321,10 +350,14 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg,
         table = cache.page_table
         if isinstance(cache, QuantPagedKVCache):
             n_bits = getattr(cfg, "kv_bits", 4)
+            slots = page_slots(table, pos, keep, cache.k_codes.shape[0],
+                               cache.k_codes.shape[1])
             _quant_paged_write(cache.k_codes, cache.k_scale, cache.k_tail,
-                               table, k, pos, keep, cache.length, adv, n_bits)
+                               table, k, pos, keep, cache.length, adv, n_bits,
+                               slots)
             _quant_paged_write(cache.v_codes, cache.v_scale, cache.v_tail,
-                               table, v, pos, keep, cache.length, adv, n_bits)
+                               table, v, pos, keep, cache.length, adv, n_bits,
+                               slots)
             if kernel:
                 from repro_torch.kernels.paged_attention.ops import \
                     paged_decode_attention_quant
@@ -340,8 +373,10 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg,
                                          cache.v_tail, table, new_len,
                                          n_bits, cache.v_tail.dtype)
         else:
-            _paged_write(cache.k, table, k, pos, keep)
-            _paged_write(cache.v, table, v, pos, keep)
+            slots = page_slots(table, pos, keep, cache.k.shape[0],
+                               cache.k.shape[1])
+            _paged_write(cache.k, slots, k)
+            _paged_write(cache.v, slots, v)
             if kernel:
                 from repro_torch.kernels.paged_attention.ops import \
                     paged_decode_attention

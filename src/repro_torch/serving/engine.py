@@ -1,32 +1,50 @@
 """Serving layer: prefill and single-token decode steps, the
-autoregressive generation loop, and the slot-pool steps of continuous
-batching (port of ``src/repro/serving/engine.py`` without its mesh
-plumbing and SSM-state masking).
+autoregressive generation loop, the slot-pool steps of continuous
+batching, and the program type that runs each of them as one CUDA graph
+(port of ``src/repro/serving/engine.py`` without its mesh plumbing and
+SSM-state masking).
 
-The reference compiles prefill plus every decode step into one XLA
-program (``lax.scan``, or ``lax.while_loop`` with ``eos_id``); here the
-same steps run eagerly in a Python loop with the same step count: the
-first token comes from the prefill logits, ``max_new - 1`` decode forwards
-follow, and the dead forward after the last token is skipped (its stats
-slot reports zero).  :func:`reference_generate` keeps the per-token loop
-that does run that last forward, as the reference does.
+Where the reference compiles a function into one XLA program with
+``jax.jit``, the port captures it into a :class:`Program`: one
+``torch.cuda.CUDAGraph`` per static input signature, captured at the
+first call and replayed at every later one (the counterpart of the
+reference's ``jit_sharded`` and ``compiled_size``).  On the CPU the same
+body runs eagerly into the same static buffers; :func:`eager` makes every
+program do that on the card too, as ``jax.disable_jit()`` does for the
+reference.
+
+:func:`greedy_generate` is one program per static configuration (prefill
+plus every decode step), kept in an LRU that ``set_generate_cache_size``
+bounds, like the reference's ``generate_fn``: the first token comes from
+the prefill logits and ``max_new - 1`` decode forwards follow.  With
+``eos_id`` the reference's ``lax.while_loop`` stops once every row is
+done; a graph cannot, so the program runs every forward with finished
+rows' tokens held at ``eos_id`` and zeroes the stats of each forward taken
+after every row is done: tokens and stats equal the reference's.
+:func:`reference_generate` keeps the per-token loop that runs a forward
+after every token, as the reference does.
 
 Quantized serving (``quant=True``) sends every projection of prefill and
-decode through the two CUDA kernels (the reference's prefill uses its
-plain ``"xla"`` form; both are exact, so tokens do not depend on it).
+decode through the CUDA kernels (the reference's prefill uses its plain
+``"xla"`` form; both are exact, so tokens do not depend on it).
 
 The slot-pool steps (:func:`make_slot_serve_step`, :func:`make_slot_prefill`,
-:func:`make_slot_prefill_chunk`) are the device programs of
-``serving/scheduler.py``: they take per-slot ``(B,)`` lengths and,
-``paged=True``, a page table; the reference jits each, here each is one
-eager call.  ``quant`` may be the reference's backend names (``"pallas"``,
-``"xla"``): both select the CUDA kernels.
+:func:`make_slot_prefill_chunk`) are the bodies of
+``serving/scheduler.py``'s programs: they take per-slot ``(B,)`` lengths
+and, ``paged=True``, a page table.  ``quant`` may be the reference's
+backend names (``"pallas"``, ``"xla"``): both select the CUDA kernels.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import collections
+import contextlib
+import ctypes
+import time
+import warnings
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -39,11 +57,257 @@ QuantFlag = Union[bool, str, QuantCtx]
 def _quant_ctx(quant: QuantFlag):
     """bool | backend name | QuantCtx -> QuantCtx or None.  A backend name
     (the reference's ``"pallas"`` / ``"xla"``) means quantized: the port
-    has one quantized path, its two CUDA kernels."""
+    has one quantized path, its CUDA kernels."""
     if isinstance(quant, str):
         return as_quant_ctx(True)
     return as_quant_ctx(quant)
 
+
+# ---------------------------------------------------------------------------
+# programs: one CUDA graph per static input signature
+# ---------------------------------------------------------------------------
+
+_EAGER = False
+
+
+@contextlib.contextmanager
+def eager():
+    """Run every :class:`Program` body eagerly, on the card too (no
+    capture, no replay), through the same static buffers: the port's
+    ``jax.disable_jit()``.  ``chip_smoke.py`` and the card tests hold the
+    graphs against it."""
+    global _EAGER
+    prev, _EAGER = _EAGER, True
+    try:
+        yield
+    finally:
+        _EAGER = prev
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every CUDA kernel wrapper's ``.launches`` count, by name."""
+    from repro_torch.kernels.bitplane_matmul import ops as bm_ops
+    from repro_torch.kernels.log2quant import ops as l2_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+
+    return {k.__name__: k.launches
+            for k in (l2_ops.log2quant, bm_ops.bitplane_matmul,
+                      pa_ops.paged_attention, pa_ops.paged_attention_quant)}
+
+
+def _leaves(tree):
+    """The tensors of a tree of dicts, tuples (named ones too) and lists."""
+    if torch.is_tensor(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
+
+
+def fingerprint(tree) -> tuple:
+    """Address, shape, stride and dtype of every tensor of ``tree``: what a
+    captured graph bakes in."""
+    return tuple((t.data_ptr(), tuple(t.shape), tuple(t.stride()), t.dtype)
+                 for t in _leaves(tree))
+
+
+def _as_input(x) -> torch.Tensor:
+    return x if torch.is_tensor(x) else torch.from_numpy(
+        np.ascontiguousarray(x))
+
+
+class _Entry:
+    """One static signature of a program: its input buffers, its outputs,
+    and on the card its graph, launch census and replay count."""
+
+    def __init__(self, inputs):
+        self.inputs = inputs
+        self.outputs = None
+        self.graph = None
+        self.census: Optional[Dict[str, int]] = None
+        self.capture_ms: Optional[float] = None
+        self.calls = 0          # eager runs and replays
+        self.replays = 0
+
+
+class Program:
+    """``body(*inputs) -> tuple of tensors`` captured as one CUDA graph per
+    static input signature (shapes and dtypes), the port's ``jax.jit``.
+
+    ``inputs`` are tensors (any device) or numpy arrays; each call copies
+    them into the signature's static device buffers.  On the card the
+    first call warms the body up on a side stream (lazy kernel builds,
+    library loads, kernel attributes; host syncs raise there, under
+    ``torch.cuda.set_sync_debug_mode("error")``), restores ``carry`` (the
+    tensors the body advances) and ``generators`` (their seed and
+    offset), captures the body into the graph, with ``generators``
+    registered so that replays advance them, and replays it; every later
+    call replays.  A capture that fails raises.  On the CPU, or under
+    :func:`eager`, the body runs eagerly into the same buffers.  Returns
+    the signature's static outputs, which the next call overwrites.
+
+    The body reads everything else (weights, the slot pool) by address:
+    ``bound()`` returns those tensors, and a call that finds any of them
+    moved or reshaped since the signature was built raises instead of
+    replaying into dead memory.  ``mem_pool`` (``torch.cuda.
+    graph_pool_handle()``) shares one private memory pool among the
+    graphs of programs that never run concurrently and whose outputs are
+    read before another of them replays (a scheduler's programs).
+    """
+
+    def __init__(self, body: Callable, *, name: str, device,
+                 carry: Sequence[torch.Tensor] = (),
+                 generators: Sequence[torch.Generator] = (),
+                 bound: Optional[Callable[[], Any]] = None, mem_pool=None):
+        self.body = body
+        self.name = name
+        self.device = torch.device(device)
+        self.carry = tuple(carry)
+        self.generators = tuple(generators)
+        self.bound = bound
+        self.mem_pool = mem_pool
+        self._entries: "collections.OrderedDict[tuple, _Entry]" = \
+            collections.OrderedDict()
+        self._bound_fp = None
+
+    def __call__(self, *inputs):
+        xs = [_as_input(x) for x in inputs]
+        sig = tuple((tuple(x.shape), x.dtype) for x in xs)
+        e = self._entries.get(sig)
+        if e is None:
+            e = self._entries[sig] = _Entry(
+                [torch.empty(x.shape, dtype=x.dtype, device=self.device)
+                 for x in xs])
+        self._check_bound()
+        for buf, x in zip(e.inputs, xs):
+            buf.copy_(x)
+        e.calls += 1
+        if self.device.type != "cuda" or _EAGER:
+            out = self.body(*e.inputs)
+            if e.outputs is None:
+                e.outputs = tuple(t.clone() for t in out)
+            else:
+                for buf, t in zip(e.outputs, out):
+                    buf.copy_(t)
+            return e.outputs
+        if e.graph is None:
+            self._capture(e)
+        e.graph.replay()
+        e.replays += 1
+        return e.outputs
+
+    def _check_bound(self) -> None:
+        if self.bound is None:
+            return
+        fp = fingerprint(self.bound())
+        if self._bound_fp is None:
+            self._bound_fp = fp
+        elif fp != self._bound_fp:
+            raise RuntimeError(
+                f"program {self.name!r}: a tensor its body reads by address "
+                f"was rebound or reshaped; a replay would read dead memory")
+
+    def _capture(self, e: _Entry) -> None:
+        dev = self.device
+        saved = [t.clone() for t in self.carry]
+        rng = [(g.initial_seed(), g.get_offset()) for g in self.generators]
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        mode = torch.cuda.get_sync_debug_mode()
+        with warnings.catch_warnings():     # "a prototype feature"
+            warnings.simplefilter("ignore", UserWarning)
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.cuda.stream(side):
+                self.body(*e.inputs)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        for t, s in zip(self.carry, saved):
+            t.copy_(s)
+        for g, (seed, offset) in zip(self.generators, rng):
+            g.manual_seed(seed)
+            g.set_offset(offset)
+        try:
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+        except TypeError:       # a torch without keep_graph
+            graph = torch.cuda.CUDAGraph()
+        for g in self.generators:
+            graph.register_generator_state(g)
+        before = launch_counts()
+        t0 = time.perf_counter()
+        pool = () if self.mem_pool is None else (self.mem_pool,)
+        with torch.cuda.graph(graph, *pool):
+            out = self.body(*e.inputs)
+        if hasattr(graph, "instantiate"):
+            graph.instantiate()
+        torch.cuda.synchronize(dev)
+        e.capture_ms = (time.perf_counter() - t0) * 1e3
+        after = launch_counts()
+        e.census = {k: after[k] - before[k] for k in after}
+        e.graph, e.outputs = graph, out
+
+    # ---------------------------------------------------------- inspection
+
+    def entries(self):
+        return list(self._entries.values())
+
+    def static_inputs(self) -> Dict[tuple, torch.Tensor]:
+        """``{(signature, i): buffer}`` over every signature built."""
+        return {(sig, i): t for sig, e in self._entries.items()
+                for i, t in enumerate(e.inputs)}
+
+    @property
+    def calls(self) -> int:
+        return sum(e.calls for e in self._entries.values())
+
+    def replayed_launches(self) -> Dict[str, int]:
+        """Kernel launches the replays ran: each graph's capture census
+        times its replay count, summed."""
+        out: Dict[str, int] = collections.Counter()
+        for e in self._entries.values():
+            for k, n in (e.census or {}).items():
+                out[k] += n * e.replays
+        return dict(out)
+
+
+def compiled_size(program: Program) -> int:
+    """Static signatures a program has built (on the card, captured
+    graphs): the reference's compiled-program count."""
+    return len(program._entries)
+
+
+def graph_nodes(entry: _Entry) -> Optional[Tuple[int, int]]:
+    """``(kernel nodes, all nodes)`` of a captured graph, read through the
+    CUDA API's ``cuGraphGetNodes`` (libcuda); None where the graph was
+    not kept."""
+    if entry.graph is None:
+        return None
+    try:
+        raw = entry.graph.raw_cuda_graph()
+    except (AttributeError, RuntimeError):
+        return None
+    cu = ctypes.CDLL("libcuda.so.1")
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(ctypes.c_void_p(raw), None, ctypes.byref(n)):
+        return None
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(ctypes.c_void_p(raw), nodes, ctypes.byref(n)):
+        return None
+    kind = ctypes.c_int(0)
+    kernels = 0
+    for node in nodes:
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kernels += kind.value == 0          # CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels, n.value
+
+
+# ---------------------------------------------------------------------------
+# steps and the one-shot loop
+# ---------------------------------------------------------------------------
 
 def make_prefill_step(cfg: ModelConfig, quant: QuantFlag = False):
     """(params, batch, caches) -> (last-token logits, caches)."""
@@ -75,55 +339,63 @@ def make_serve_step(cfg: ModelConfig, quant: QuantFlag = False,
 
 def _sample(logits: torch.Tensor, temperature: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Greedy argmax, or one draw from ``softmax(logits / temperature)``
+    by the exponential race that ``torch.multinomial`` runs for one sample
+    (``argmax(p / E)``, ``E ~ Exp(1)``), without its host-side check of
+    ``p``, which a graph cannot capture."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     probs = torch.softmax(logits.float() / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
-        torch.int32)
+    race = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return torch.argmax(probs / race, dim=-1).to(torch.int32)
 
 
 def make_decode_loop(cfg: ModelConfig, max_new: int, *,
                      temperature: float = 0.0, quant: QuantFlag = False,
                      eos_id: Optional[int] = None, with_stats: bool = False):
     """Build ``decode(params, caches, logits, generator) -> (tokens,
-    stats)``.
+    stats)``, the body of the one-shot program: no host synchronisation.
 
     ``caches`` are pre-filled and ``logits`` is the last prompt token's
     distribution.  Returns tokens ``(B, max_new)`` int32 and, with
     ``with_stats``, per-step ``(max_new,)`` ``plane_traffic_fraction`` and
     ``element_traffic_fraction`` (entry ``i`` is the forward that consumed
-    token ``i``; skipped forwards report 0), else ``None``.  With
-    ``eos_id`` the loop stops once every row has emitted it; later slots
-    are ``eos_id``.
+    token ``i``; the last slot, whose forward would be dead, reports 0),
+    else ``None``.  With ``eos_id`` a row's tokens after its first
+    ``eos_id`` are ``eos_id``, and a forward taken once every row is done
+    reports 0, as the reference's early-exit loop does.
     """
     step = make_serve_step(cfg, quant, with_stats=with_stats)
 
     def decode(params, caches, logits, generator=None):
         b = logits.shape[0]
         dev = logits.device
-        toks = torch.full((b, max_new), -1 if eos_id is None else eos_id,
-                          dtype=torch.int32, device=dev)
-        fracs = torch.zeros((max_new, 2), dtype=torch.float32, device=dev)
+        zero = torch.zeros((2,), dtype=torch.float32, device=dev)
         done = torch.zeros((b,), dtype=torch.bool, device=dev)
+        toks, fracs = [], []
         for i in range(max_new):
             tok = _sample(logits, temperature, generator)
             if eos_id is not None:
                 tok = torch.where(done, eos_id, tok)
                 done = done | (tok == eos_id)
-            toks[:, i] = tok
-            # the forward after the last sampled token (or once every row
-            # is done) would be dead: skip it, its stats slot stays zero
-            if i + 1 >= max_new or (eos_id is not None and bool(done.all())):
+            toks.append(tok)
+            if i + 1 >= max_new:
+                fracs.append(zero)     # the dead forward is skipped
                 break
             out = step(params, caches, tok[:, None])
             if with_stats:
                 logits, caches, stats = out
-                fracs[i, 0] = stats["plane_traffic_fraction"]
-                fracs[i, 1] = stats["element_traffic_fraction"]
+                frac = torch.stack([stats["plane_traffic_fraction"],
+                                    stats["element_traffic_fraction"]])
+                if eos_id is not None:
+                    frac = torch.where(done.all(), 0.0, frac)
+                fracs.append(frac)
             else:
                 logits, caches = out
+        toks = torch.stack(toks, dim=1)
         if not with_stats:
             return toks, None
+        fracs = torch.stack(fracs)
         return toks, {"plane_traffic_fraction": fracs[:, 0],
                       "element_traffic_fraction": fracs[:, 1]}
     return decode
@@ -137,39 +409,152 @@ def _check_inputs(params, prompt: torch.Tensor, device):
     return dev, prompt.to(dev)
 
 
+class _Generate:
+    """Prefill plus the decode loop as one :class:`Program` (one graph
+    per prompt shape) for one static configuration and one set of
+    weights.  On the card, temperature sampling draws from a generator
+    of the program's own, registered with its graphs: each call seeds it
+    from the caller's generator and hands the advanced offset back."""
+
+    def __init__(self, cfg: ModelConfig, max_new: int, temperature: float,
+                 quant: bool, eos_id: Optional[int], with_stats: bool,
+                 dev: torch.device):
+        prefill = make_prefill_step(cfg, quant)
+        decode = make_decode_loop(cfg, max_new, temperature=temperature,
+                                  quant=quant, eos_id=eos_id,
+                                  with_stats=with_stats)
+        self.sampling = temperature > 0.0
+        self.own = (torch.Generator(device=dev)
+                    if self.sampling and dev.type == "cuda" else None)
+        self._bind: Dict[str, Any] = {}
+
+        def generate(prompt):
+            params, gen = self._bind["params"], self._bind["generator"]
+            b, s = prompt.shape
+            caches = init_caches(cfg, b, max_len=s + max_new,
+                                 dtype=cfg.dtype, device=prompt.device)
+            logits, caches = prefill(params, {"tokens": prompt}, caches)
+            toks, stats = decode(params, caches, logits, gen)
+            if stats is None:
+                return (toks,)
+            return toks, torch.stack([stats["plane_traffic_fraction"],
+                                      stats["element_traffic_fraction"]])
+
+        self.program = Program(
+            generate, name="generate", device=dev,
+            generators=() if self.own is None else (self.own,))
+
+    def __call__(self, params, prompt, generator):
+        gen = generator
+        if self.own is not None:
+            self.own.manual_seed(generator.initial_seed())
+            self.own.set_offset(generator.get_offset())
+            gen = self.own
+        self._bind.update(params=params, generator=gen)
+        try:
+            out = self.program(prompt)
+        finally:
+            self._bind.clear()
+        if self.own is not None:
+            generator.set_offset(self.own.get_offset())
+        return out
+
+
+class _GenerateFnCache:
+    """LRU of one-shot generate programs, one per static configuration
+    and set of weights (a graph bakes in their addresses): repeated
+    generates of one configuration capture once per prompt shape.  The
+    bound is adjustable; the serve scheduler sizes it from its
+    ``ServeConfig`` through :func:`set_generate_cache_size`."""
+
+    def __init__(self, maxsize: int = 64):
+        self._data: "collections.OrderedDict[tuple, _Generate]" = \
+            collections.OrderedDict()
+        self._maxsize = maxsize
+
+    def __call__(self, cfg: ModelConfig, params, max_new: int,
+                 temperature: float, quant: bool, eos_id: Optional[int],
+                 with_stats: bool, dev: torch.device) -> _Generate:
+        key = (cfg, max_new, temperature, quant, eos_id, with_stats, str(dev),
+               fingerprint(params))
+        fn = self._data.get(key)
+        if fn is None:
+            fn = self._data[key] = _Generate(cfg, max_new, temperature,
+                                             quant, eos_id, with_stats, dev)
+        self._data.move_to_end(key)
+        while len(self._data) > self._maxsize:
+            self._data.popitem(last=False)
+        return fn
+
+    def __len__(self) -> int:
+        return len(self._data)
+
+    @property
+    def maxsize(self) -> int:
+        return self._maxsize
+
+    def set_maxsize(self, maxsize: int) -> None:
+        if maxsize < 1:
+            raise ValueError(f"maxsize must be >= 1, got {maxsize}")
+        self._maxsize = maxsize
+        while len(self._data) > self._maxsize:
+            self._data.popitem(last=False)
+
+    def cache_clear(self) -> None:
+        self._data.clear()
+
+
+generate_fn = _GenerateFnCache()
+
+
+def clear_generate_cache() -> None:
+    """Drop every cached generate program (and its graphs' memory); the
+    next generate per configuration captures again."""
+    generate_fn.cache_clear()
+
+
+def set_generate_cache_size(maxsize: int) -> None:
+    """Bound the generate-program LRU: callers that know their live
+    configuration count (the serve scheduler) size it so that no program
+    in rotation is evicted."""
+    generate_fn.set_maxsize(maxsize)
+
+
 def greedy_generate(cfg: ModelConfig, params, prompt: torch.Tensor,
                     max_new: int, *, temperature: float = 0.0,
                     generator: Optional[torch.Generator] = None,
                     quant: bool = False, eos_id: Optional[int] = None,
                     with_stats: bool = False, device=None):
-    """Batched generation: prefill, then the decode loop.  Returns tokens
-    ``(B, max_new)``; with ``with_stats=True``, ``(tokens, stats)``.
-    ``generator`` drives temperature sampling (default: seed 0 on the
-    device)."""
+    """Batched generation, prefill then every decode step, as one program
+    (on the card one CUDA-graph replay per call after the first).
+    Returns tokens ``(B, max_new)``; with ``with_stats=True``, ``(tokens,
+    stats)``.  ``generator`` drives temperature sampling (default: seed 0
+    on the device) and is advanced by the draws."""
     if not isinstance(quant, bool):
         raise TypeError("greedy_generate takes quant as bool; build a "
                         "custom loop via make_decode_loop for a QuantCtx")
     dev, prompt = _check_inputs(params, prompt, device)
     if generator is None and temperature > 0.0:
         generator = torch.Generator(device=dev).manual_seed(0)
-    b, s = prompt.shape
-    caches = init_caches(cfg, b, max_len=s + max_new, dtype=cfg.dtype,
-                         device=dev)
-    logits, caches = make_prefill_step(cfg, quant)(
-        params, {"tokens": prompt}, caches)
-    decode = make_decode_loop(cfg, max_new, temperature=temperature,
-                              quant=quant, eos_id=eos_id,
-                              with_stats=with_stats)
-    toks, stats = decode(params, caches, logits, generator)
-    return (toks, stats) if with_stats else toks
+    fn = generate_fn(cfg, params, int(max_new), float(temperature), quant,
+                     None if eos_id is None else int(eos_id),
+                     bool(with_stats), dev)
+    out = fn(params, prompt.to(torch.int32), generator)
+    toks = out[0].clone()
+    if not with_stats:
+        return toks
+    fracs = out[1].clone()
+    return toks, {"plane_traffic_fraction": fracs[0],
+                  "element_traffic_fraction": fracs[1]}
 
 
 def reference_generate(cfg: ModelConfig, params, prompt: torch.Tensor,
                        max_new: int, *, temperature: float = 0.0,
                        generator: Optional[torch.Generator] = None,
                        quant: bool = False, device=None) -> torch.Tensor:
-    """The per-token loop with a forward after every token: the semantic
-    oracle for :func:`greedy_generate`."""
+    """The per-token loop with a forward after every token, run eagerly
+    on any device: the semantic oracle for :func:`greedy_generate`, not a
+    serving path."""
     dev, prompt = _check_inputs(params, prompt, device)
     if generator is None and temperature > 0.0:
         generator = torch.Generator(device=dev).manual_seed(0)

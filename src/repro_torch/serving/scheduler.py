@@ -33,14 +33,25 @@ skipping pays:
   ring; decode reads go through the quantized kernel (``attn_kernel``) or
   the dequantizing gather.
 
-Where the reference compiles a tick into one ``lax.scan``, the port runs a
-Python loop of ``tick_steps`` device steps with no host synchronisation
-inside; tokens and per-step traffic fractions come to the host once per
-tick.  Host state (slots, page tables, the queue) is numpy, as in the
-reference.  Not ported: the deprecated keyword-argument constructor,
-``compile_stats`` / ``audit_programs`` (JAX compile concepts), ``mesh=`` /
-``mesh_spec`` and SSM state snapshots; ``generate_cache_size`` is accepted and has no effect (the port
-compiles no programs).
+Each device step is a :class:`~repro_torch.serving.engine.Program`, the
+port's counterpart of the reference's jitted programs, which on the card
+runs as one CUDA-graph replay per call: the tick (``tick_steps``
+slot-masked greedy steps, the reference's ``lax.scan``), the chunk step,
+the mixed chunk + tick, one prefill per bucket on a static 1-row cache,
+and the slot write.  Their static inputs are the page table, the active
+mask and the chunk slab, copied in from the host each tick; they write
+the pool, its lengths and the logits in place, so those tensors keep
+their addresses for the scheduler's life.  :meth:`ServeScheduler.
+compile_stats` counts the programs' signatures as the reference counts
+its compiled programs.  Tokens and per-step traffic fractions come to the
+host once per tick.  The copy on write of a prefix hit's partial page,
+its tail-ring restore and its length write stay eager in-place writes
+(the reference's ``cow_pages`` / ``admit_hit`` programs).  Host state
+(slots, page tables, the queue) is numpy, as in the reference.  Not
+ported: the deprecated keyword-argument constructor, ``audit_programs``
+(it traces and lowers JAX programs for the reference's jaxpr/HLO
+auditor, which has no counterpart for a CUDA graph), ``mesh=`` /
+``mesh_spec`` and SSM state snapshots.
 """
 
 from __future__ import annotations
@@ -55,7 +66,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.logquant import dequantize_page_codes
-from repro_torch.models.attention import _quant_paged_write
+from repro_torch.models.attention import _quant_paged_write, page_slots
 from repro_torch.models.model import (ModelConfig, init_caches,
                                       init_paged_pool)
 from repro_torch.serving import engine
@@ -223,6 +234,22 @@ class ServeScheduler:
         self._next_rid = 0
         self._tick_count = 0
 
+        # the generate-program LRU serves the one-shot parity / baseline
+        # path (greedy_generate): sized as the reference sizes it (the
+        # default only ever grows the process-global bound)
+        generate_cache_size = config.generate_cache_size
+        if generate_cache_size is None:
+            generate_cache_size = max(engine.generate_fn.maxsize,
+                                      4 * len(self.buckets) + 16)
+        engine.set_generate_cache_size(generate_cache_size)
+
+        # the bucketed prefill's static 1-row cache and logits, which the
+        # slot write reads
+        self._cache1 = init_caches(cfg, 1, max_len, dtype=cfg.dtype,
+                                   device=dev)
+        self._logits1 = torch.zeros((1, cfg.vocab_size), dtype=cfg.dtype,
+                                    device=dev)
+
         quant = config.quant
         self._slot_prefill = engine.make_slot_prefill(cfg, quant)
         self._step = engine.make_slot_serve_step(cfg, quant,
@@ -232,59 +259,99 @@ class ServeScheduler:
             cfg, quant, with_stats=with_stats, paged=paged)
             if self._needs_chunk_programs else None)
 
-    # ------------------------------------------------------- device steps
+        # --- programs: one CUDA graph per static signature on the card ----
+        # they never run concurrently and the tick reads each one's outputs
+        # before the next replays, so their graphs share one memory pool
+        common = dict(device=dev, bound=self._bound, mem_pool=(
+            torch.cuda.graph_pool_handle() if dev.type == "cuda" else None))
+        # what a tick's warm-up changes that the same call reads before
+        # writing it: the logits, the lengths and the trash page (a free
+        # slot's all-trash table reads it as that slot's junk cache; the
+        # junk rows enter the batch-aggregate stats)
+        carry = [self._logits, self._pool["length"]]
+        if paged:
+            carry += [t[:, TRASH_PAGE] for layer in self._pool["layers"]
+                      for k, t in layer.items() if not k.endswith("_tail")]
+        # prefill: one signature per bucket; the slot write: one
+        self._prefill = engine.Program(self._prefill_body, name="prefill",
+                                       **common)
+        self._write = engine.Program(self._write_body, name="write_slot",
+                                     **common)
+        self._tick = engine.Program(self._tick_body, name="tick",
+                                    carry=carry, **common)
+        self._chunk = self._mixed = None
+        if self._needs_chunk_programs:
+            # ONE fixed (B, chunk_len) slab shape regardless of prompt
+            # length; the mixed program is the chunk body, then the tick's
+            self._chunk = engine.Program(self._chunk_body, name="chunk",
+                                         carry=carry, **common)
+            self._mixed = engine.Program(self._mixed_body, name="mixed",
+                                         carry=carry, **common)
 
-    def _dev(self, a, dtype=None) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+    # ----------------------------------------------------- program bodies
 
-    def _prefill(self, prompt: np.ndarray, true_len: int):
-        """Bucketed prefill of one padded prompt into a fresh 1-row cache."""
-        caches = init_caches(self.cfg, 1, self.max_len, dtype=self.cfg.dtype,
-                             device=self.device)
-        return self._slot_prefill(
-            self.params, self._dev(prompt, torch.int32),
-            self._dev([true_len], torch.int32), caches)
+    def _bound(self):
+        """What the programs read by address: it must never be rebound."""
+        return (self.params, self._pool, self._logits, self._cache1,
+                self._logits1)
 
-    def _write(self, slot_cache, slot_logits, i: int, true_len: int) -> None:
-        """Write a freshly prefilled 1-row cache and its logits into slot
-        ``i``.  Paged: positions ``< true_len`` land at (``table[i, p //
-        page_len]``, ``p % page_len``), the rest at the trash page."""
-        layers = zip(self._pool["layers"], slot_cache["layers"])
+    def _prefill_body(self, prompt, true_len):
+        """Bucketed prefill of one padded prompt into the zeroed static
+        1-row cache; its last-real logits into ``_logits1``."""
+        for c in self._cache1["layers"]:
+            for t in c.values():
+                t.zero_()
+        logits, _ = self._slot_prefill(self.params, prompt, true_len,
+                                       self._cache1)
+        self._logits1.copy_(logits)
+        return ()
+
+    def _write_body(self, slot, true_len, row=None):
+        """Write the prefilled 1-row cache and its logits into slot
+        ``slot`` (``(1,)`` int64).  Paged: positions ``< true_len`` land at
+        (``row[p // page_len]``, ``p % page_len``), the rest at the trash
+        page (the last of them wins it)."""
+        layers = zip(self._pool["layers"], self._cache1["layers"])
         if self.paged:
-            pl = self.page_len
-            pos = torch.arange(self.max_len, device=self.device)
-            valid = pos < true_len
-            row = self._dev(self._table[i]).long()
-            page = torch.where(valid, row[pos // pl], TRASH_PAGE)
-            off = torch.where(valid, pos % pl, 0)
+            pos = torch.arange(self.max_len, device=self.device)[None]
+            slots = page_slots(row[None], pos, pos < true_len, self.n_pages,
+                               self.page_len)
+            page, off = slots.page[0], slots.off[0]
             for c_pool, c_slot in layers:
                 if self.kv_quant:
-                    self._quant_write(c_pool, c_slot, i, true_len, row)
+                    self._quant_write(c_pool, c_slot, slot, true_len, row,
+                                      slots)
                     continue
                 for k in ("k", "v"):
-                    c_pool[k][:, page, off] = c_slot[k][:, 0].to(
-                        c_pool[k].dtype)
+                    c_pool[k][:, page, off] = c_slot[k][:, 0][
+                        :, slots.src].to(c_pool[k].dtype)
         else:
             for c_pool, c_slot in layers:
                 for k in ("k", "v"):
-                    c_pool[k][:, i] = c_slot[k][:, 0].to(c_pool[k].dtype)
-        self._pool["length"][i] = true_len
-        self._logits[i] = slot_logits[0].to(self._logits.dtype)
+                    c_pool[k].index_copy_(1, slot,
+                                          c_slot[k].to(c_pool[k].dtype))
+        self._pool["length"].index_copy_(0, slot, true_len)
+        self._logits.index_copy_(0, slot,
+                                 self._logits1.to(self._logits.dtype))
+        return ()
 
-    def _quant_write(self, c_pool, c_slot, i: int, true_len: int,
-                     row: torch.Tensor) -> None:
-        """Quantize a prefilled dense slab into slot ``i``'s pages, their
-        scales and its tail ring: per layer, the pool write of a
+    def _quant_write(self, c_pool, c_slot, slot, true_len, row,
+                     slots) -> None:
+        """Quantize a prefilled dense slab into slot ``slot``'s pages,
+        their scales and its tail ring: per layer, the pool write of a
         ``true_len``-token chunk at position 0 (pad rows to the trash page
         and the junk bin)."""
         pos = torch.arange(self.max_len, device=self.device)[None]
         start = torch.zeros((1,), dtype=torch.int32, device=self.device)
         for r in range(self.cfg.repeats):
             for k in ("k", "v"):
+                tail = c_pool[f"{k}_tail"][r]
+                ring = tail.index_select(0, slot)
                 _quant_paged_write(
-                    c_pool[f"{k}_codes"][r], c_pool[f"{k}_scale"][r],
-                    c_pool[f"{k}_tail"][r, i:i + 1], row[None], c_slot[k][r],
-                    pos, pos < true_len, start, true_len, self.kv_bits)
+                    c_pool[f"{k}_codes"][r], c_pool[f"{k}_scale"][r], ring,
+                    row[None], c_slot[k][r], pos, pos < true_len, start,
+                    true_len, self.kv_bits, slots)
+                tail.index_copy_(0, slot, ring)
 
     def _restore_tail(self, i: int, hit_len: int) -> None:
         """Seed slot ``i``'s tail ring from the prefix hit's newest page
@@ -303,42 +370,54 @@ class ServeScheduler:
                     c[f"{k}_scale"][:, page][:, None, :, None], self.kv_bits,
                     tail.dtype)
 
-    def _table_dev(self):
-        return (self._dev(self._table),) if self.paged else ()
-
-    def _decode(self, active: torch.Tensor, pt: tuple):
-        """``tick_steps`` slot-masked greedy steps on the device: returns
-        tokens ``(B, tick_steps)`` and fractions ``(tick_steps, 2)``, both
-        still on the device."""
+    def _tick_body(self, active, page_table=None):
+        """``tick_steps`` slot-masked greedy steps: tokens ``(B,
+        tick_steps)`` and fractions ``(tick_steps, 2)``; the logits and
+        lengths land in place."""
+        pt = (page_table,) if self.paged else ()
+        caches, logits = self._pool, self._logits
         toks, fracs = [], []
         zero = torch.zeros((2,), dtype=torch.float32, device=self.device)
         for _ in range(self.tick_steps):
-            tok = torch.argmax(self._logits, dim=-1).to(torch.int32)
-            out = self._step(self.params, self._pool, tok[:, None], active,
-                             *pt)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            out = self._step(self.params, caches, tok[:, None], active, *pt)
             if self.with_stats:
-                self._logits, self._pool, stats = out
+                logits, caches, stats = out
                 fracs.append(torch.stack(
                     [stats["plane_traffic_fraction"],
                      stats["element_traffic_fraction"]]))
             else:
-                self._logits, self._pool = out
+                logits, caches = out
                 fracs.append(zero)
             toks.append(tok)
+        self._logits.copy_(logits)
+        self._pool["length"].copy_(caches["length"])
         return torch.stack(toks, dim=1), torch.stack(fracs)
 
-    def _chunk(self, tokens, valid, fresh, finishing, pt: tuple):
-        out = self._chunk_step(self.params, self._pool, self._logits,
-                               self._dev(tokens, torch.int32),
-                               self._dev(valid, torch.int32),
-                               self._dev(fresh, torch.bool),
-                               self._dev(finishing, torch.bool), *pt)
+    def _chunk_body(self, tokens, valid, fresh, finishing, page_table=None):
+        """One prompt chunk per prefilling slot: its fractions ``(2,)``;
+        the logits and lengths land in place."""
+        pt = (page_table,) if self.paged else ()
+        out = self._chunk_step(self.params, self._pool, self._logits, tokens,
+                               valid, fresh, finishing, *pt)
         if self.with_stats:
-            self._logits, self._pool, stats = out
-            return torch.stack([stats["plane_traffic_fraction"],
-                                stats["element_traffic_fraction"]])
-        self._logits, self._pool = out
-        return torch.zeros((2,), dtype=torch.float32, device=self.device)
+            logits, caches, stats = out
+            cfrac = torch.stack([stats["plane_traffic_fraction"],
+                                 stats["element_traffic_fraction"]])
+        else:
+            logits, caches = out
+            cfrac = torch.zeros((2,), dtype=torch.float32,
+                                device=self.device)
+        self._logits.copy_(logits)
+        self._pool["length"].copy_(caches["length"])
+        return (cfrac,)
+
+    def _mixed_body(self, active, tokens, valid, fresh, finishing,
+                    page_table=None):
+        (cfrac,) = self._chunk_body(tokens, valid, fresh, finishing,
+                                    page_table)
+        toks, fracs = self._tick_body(active, page_table)
+        return toks, fracs, cfrac
 
     def _cow(self, src: int, dst: int) -> None:
         """Copy page ``src`` into page ``dst`` in every layer's K and V (a
@@ -403,6 +482,21 @@ class ServeScheduler:
     @property
     def pending(self) -> int:
         return len(self._queue) + int(self._active.sum())
+
+    def programs(self) -> Dict[str, "engine.Program"]:
+        """The scheduler's device programs by the reference's names."""
+        progs = {"prefill": self._prefill, "tick": self._tick,
+                 "write_slot": self._write}
+        if self._needs_chunk_programs:
+            progs.update(chunk=self._chunk, mixed=self._mixed)
+        return progs
+
+    def compile_stats(self) -> Dict[str, int]:
+        """Program signatures built (on the card, CUDA graphs captured)
+        per program, with the reference's keys and meaning: ``prefill``
+        is bounded by the buckets, every other program by 1."""
+        return {name: engine.compiled_size(p)
+                for name, p in self.programs().items()}
 
     def prefix_cache_stats(self) -> Dict[str, float]:
         """Prefix-cache effectiveness over everything admitted so far:
@@ -481,16 +575,20 @@ class ServeScheduler:
              and (s.phase == "decode" or bool(finishing[i]))
              for i, s in enumerate(self._slots)])
 
-        pt = self._table_dev()
-        toks = fracs = cfrac = None
-        if chunk_rows:
-            cfrac = self._chunk(tokens, valid, fresh, finishing, pt)
-        if decode_mask.any():
-            toks, fracs = self._decode(self._dev(decode_mask, torch.bool), pt)
-        # the tick's one host synchronisation
-        toks_h = None if toks is None else toks.cpu().numpy()
-        fracs_h = None if fracs is None else fracs.cpu().numpy()
-        cfrac_h = None if cfrac is None else cfrac.cpu().numpy()
+        # chunk + decode in ONE program when both kinds are live
+        pt = (self._table,) if self.paged else ()
+        toks_h = fracs_h = cfrac_h = None
+        if chunk_rows and decode_mask.any():
+            toks, fracs, cfrac = self._mixed(decode_mask, tokens, valid,
+                                             fresh, finishing, *pt)
+            toks_h, fracs_h = toks.cpu().numpy(), fracs.cpu().numpy()
+            cfrac_h = cfrac.cpu().numpy()
+        elif chunk_rows:
+            (cfrac,) = self._chunk(tokens, valid, fresh, finishing, *pt)
+            cfrac_h = cfrac.cpu().numpy()
+        else:
+            toks, fracs = self._tick(decode_mask, *pt)
+            toks_h, fracs_h = toks.cpu().numpy(), fracs.cpu().numpy()
 
         now = time.perf_counter()
 
@@ -584,8 +682,10 @@ class ServeScheduler:
         length = int(req.prompt.size)
         padded = np.zeros((1, bucket_for(length, self.buckets)), np.int32)
         padded[0, :length] = req.prompt
-        logits1, cache1 = self._prefill(padded, length)
-        self._write(cache1, logits1, slot_idx, length)
+        true_len = np.array([length], np.int32)
+        self._prefill(padded, true_len)
+        self._write(np.array([slot_idx], np.int64), true_len,
+                    *((self._table[slot_idx],) if self.paged else ()))
         self._active[slot_idx] = True
         self._slots[slot_idx] = _Slot(req=req,
                                       admitted_tick=self._tick_count)

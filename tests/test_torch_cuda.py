@@ -526,3 +526,217 @@ def test_paged_attention_quant_refuses_bad_inputs(cuda):
                                      table.t().contiguous().t(), lens)
     with pytest.raises(ValueError, match="one device"):
         pa_ops.paged_attention_quant(qg, kc, ks.cpu(), vc, vs, table, lens)
+
+
+# ---------------------------------------------------------------------------
+# the serving programs as CUDA graphs, against engine.eager()
+# ---------------------------------------------------------------------------
+
+GRAPH_BASE = dict(max_slots=3, max_len=64, buckets=(8, 16), tick_steps=4,
+                  chunked="auto", chunk_len=8)
+GRAPH_PAGED = dict(GRAPH_BASE, paged=True, page_len=4, prefix_cache=True,
+                   attn_kernel="pallas", attn_splits=2)
+GRAPH_MODES = {
+    "dense": (GRAPH_BASE, False),
+    "paged_k3": (GRAPH_PAGED, False),
+    "kv_quant_k4": (dict(GRAPH_PAGED, kv_quant=True, kv_bits=4), False),
+    "quant_stats_k3": (dict(GRAPH_PAGED, quant="pallas", with_stats=True),
+                       True),
+}
+
+
+def _graph_prompts(vocab):
+    """Eight requests on three slots: a chunk-only first tick, bucketed
+    and chunked admissions, retirements, prefix hits with copy on
+    write."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+
+    def tok(n):
+        return rng.integers(0, vocab, size=n).astype(np.int32)
+
+    stem = tok(10)
+    p = [np.concatenate([stem, tok(3)]), tok(5), tok(21)]
+    return p + [np.concatenate([stem, tok(4)]), p[1].copy(),
+                np.concatenate([stem, tok(5)]), tok(9), tok(7)]
+
+
+def _pool_bytes(sched):
+    """Every pool byte but those where writes collide (and CUDA picks the
+    winner in any order): the trash page and the tail rings' junk bins."""
+    out = []
+    for layer in sched._pool["layers"]:
+        for k, t in sorted(layer.items()):
+            if k.endswith("_tail"):
+                t = t[:, :, :-1]
+            elif sched.paged:
+                t = t[:, 1:]
+            out.append(t.clone())
+    return out
+
+
+def _serve_ticks(cfg, params, kw, prompts):
+    from repro_torch.serving import ServeConfig, ServeScheduler
+
+    sched = ServeScheduler(cfg, params, ServeConfig(**kw))
+    sched.submit(prompts[2], max_new=6)
+    log = []
+    while sched.pending:
+        if len(log) == 1:
+            for p in prompts[:2] + prompts[3:]:
+                sched.submit(p, max_new=6)
+        assert sched.step_tick()
+        log.append((sched._pool["length"].cpu(),
+                    sched._table.copy() if sched.paged else None,
+                    _pool_bytes(sched)))
+    results = [(r.tokens, repr(r.plane_traffic_fraction),
+                repr(r.element_traffic_fraction)) for r in sched.run()]
+    return sched, log, results
+
+
+@pytest.mark.parametrize("mode", list(GRAPH_MODES))
+def test_graph_tick_bit_equal_to_eager(cuda, mode):
+    """The scheduler's programs replayed as CUDA graphs against the same
+    bodies under ``engine.eager()``, bf16 smoke config: tokens, per-request
+    stats, and after every tick the lengths, page tables and pool bytes
+    equal bit for bit; every program that ran was captured once per
+    signature and replayed on every later call."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import init_params
+    from repro_torch.models.quantize import quantize_model_params
+    from repro_torch.serving import engine
+
+    kw, quant = GRAPH_MODES[mode]
+    cfg = get_smoke("smollm-135m")
+    params = init_params(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    if quant:
+        params = quantize_model_params(cfg, params)
+    prompts = _graph_prompts(cfg.vocab_size)
+    with engine.eager():
+        _, elog, eres = _serve_ticks(cfg, params, kw, prompts)
+    sched, glog, gres = _serve_ticks(cfg, params, kw, prompts)
+    assert gres == eres
+    assert len(glog) == len(elog)
+    for t, (g, e) in enumerate(zip(glog, elog)):
+        assert torch.equal(g[0], e[0]), f"lengths, tick {t}"
+        if sched.paged:
+            assert np.array_equal(g[1], e[1]), f"table, tick {t}"
+        for a, b in zip(g[2], e[2]):
+            assert torch.equal(a, b), f"pool bytes, tick {t}"
+    stats = sched.compile_stats()
+    assert stats["tick"] == stats["chunk"] == stats["mixed"] == 1
+    for name, prog in sched.programs().items():
+        for entry in prog.entries():
+            assert entry.graph is not None and entry.census is not None
+            assert entry.replays == entry.calls >= 1, name
+    tick = sched.programs()["tick"].entries()[0].census
+    if mode == "dense":
+        assert tick["paged_attention"] == tick["paged_attention_quant"] == 0
+    elif mode == "kv_quant_k4":
+        assert tick["paged_attention_quant"] == cfg.n_layers * 4
+    else:
+        assert tick["paged_attention"] == cfg.n_layers * 4
+    assert tick["bitplane_matmul"] == (cfg.n_layers * 7 * 4 if quant else 0)
+
+
+def test_graph_replay_reads_the_new_table(cuda):
+    """A program's static table buffer takes each call's table: a replay
+    after a host-side table change reads the new table (K3 in a graph)."""
+    from repro_torch.serving import engine
+
+    q, k, v, table, lens = _paged_case(4, 4, 2, 2, 8, [3, 9, 16, 5],
+                                       torch.bfloat16, 1e4, 3, cuda)
+    prog = engine.Program(
+        lambda t, n: (pa_ops.paged_decode_attention(q, k, v, t, n,
+                                                    splits=2),),
+        name="walk", device=cuda)
+    first = prog(table, lens)[0].clone()
+    assert torch.equal(first, pa_ops.paged_decode_attention(
+        q, k, v, table, lens, splits=2))
+    swap = torch.tensor([1, 0, 3, 2], device=cuda)
+    table2, lens2 = table[swap].contiguous(), lens[swap].contiguous()
+    second = prog(table2.cpu(), lens2.cpu())[0].clone()
+    entry = prog.entries()[0]
+    assert entry.replays == 2 and entry.census["paged_attention"] == 1
+    assert torch.equal(second, pa_ops.paged_decode_attention(
+        q, k, v, table2, lens2, splits=2))
+    assert not torch.equal(second, first)
+
+
+@pytest.mark.parametrize("eos", [False, True])
+def test_generate_program_bit_equal_to_eager(cuda, eos):
+    """The one-shot program (prefill + every decode step, one graph)
+    against its body under ``engine.eager()``: tokens and stats equal,
+    greedy and with temperature, where both runs draw from equally seeded
+    generators and leave them at the same offset."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import init_params
+    from repro_torch.models.quantize import quantize_model_params
+    from repro_torch.serving import engine
+
+    cfg = get_smoke("smollm-135m")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = quantize_model_params(cfg, init_params(cfg, generator=gen,
+                                                    device=cuda))
+    prompt = torch.randint(0, cfg.vocab_size, (3, 8), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    eos_id = None
+    if eos:
+        free = engine.greedy_generate(cfg, params, prompt, 8, quant=True)
+        eos_id = int(free[0, 2])
+    for temperature in (0.0, 0.7):
+        runs = []
+        for mode in ("eager", "graph", "graph"):
+            g = torch.Generator(device=cuda).manual_seed(5)
+            ctx = engine.eager() if mode == "eager" else torch.no_grad()
+            with ctx:
+                toks, st = engine.greedy_generate(
+                    cfg, params, prompt, 8, quant=True, with_stats=True,
+                    eos_id=eos_id, temperature=temperature, generator=g)
+            runs.append((toks, st, g.get_offset()))
+        for toks, st, offset in runs[1:]:
+            assert torch.equal(toks, runs[0][0])
+            for key in st:
+                assert torch.equal(st[key], runs[0][1][key])
+            assert offset == runs[0][2]
+
+
+def test_colliding_page_writes_match_the_host(cuda):
+    """Many rows aimed at the trash page: the card resolves them as the
+    host's serial scatter does (the last row wins), in every run, for the
+    dense pool and for the quantized pool's codes and scales."""
+    from repro_torch.models.attention import (_paged_write, _quant_paged_write,
+                                              page_slots)
+
+    gen = torch.Generator().manual_seed(4)
+    b, s, g, d, pl, n_pages = 8, 16, 3, 64, 16, 9
+    table = torch.zeros((b, 4), dtype=torch.int32)
+    table[0, :2] = torch.tensor([1, 2])
+    pos = (torch.arange(s)[None] + torch.arange(b)[:, None] * 3).to(
+        torch.int32)
+    keep = torch.rand((b, s), generator=gen) < 0.7
+    new = torch.randn((b, s, g, d), generator=gen).to(torch.bfloat16)
+    start = pos[:, 0].contiguous()
+
+    def run(dev):
+        args = [t.to(dev) for t in (table, pos, keep, new, start)]
+        t, p, k, n, st = args
+        pool = torch.zeros((n_pages, pl, g, d), dtype=torch.bfloat16,
+                           device=dev)
+        _paged_write(pool, page_slots(t, p, k, n_pages, pl), n)
+        codes = torch.zeros((n_pages, pl, g, d), dtype=torch.int8,
+                            device=dev)
+        scale = torch.zeros((n_pages, g), dtype=torch.int32, device=dev)
+        tail = torch.zeros((b, 2 * pl + 1, g, d), dtype=torch.bfloat16,
+                           device=dev)
+        _quant_paged_write(codes, scale, tail, t, n, p, k, st, s, 4)
+        return pool.cpu(), codes.cpu(), scale.cpu()
+
+    host = run("cpu")
+    for _ in range(5):
+        for a, e in zip(run(cuda), host):
+            assert torch.equal(a, e)
