@@ -14,7 +14,8 @@ Phases, in order; any failure exits non-zero before the result line:
 3. K2, the LOG2-quantize + plane-skipping bit-plane GEMM in one launch,
    bit-equal to its plain version (``log2_quantize`` of ``x / act_scale``,
    ``unpack_planes``, ``shiftadd_matmul_bitplane``) and, up to 4 bits, to
-   the direct-shift oracle on the card: every main-path (K, N) with M in
+   the direct-shift oracle on the card: every main-path (K, N), smollm-135m's
+   and mamba2-780m's (1536, 3072) and (3072, 1536), with M in
    ``PHASE3_M``, unpacked and packed planes, x in f32 and bf16, act_scale
    in ``PHASE3_SCALES``, n_bits 2..5, both of the kernel's bodies (the
    tensor cores up to 4 bits) and the wrapper's own choice; the codes it
@@ -48,7 +49,13 @@ Phases, in order; any failure exits non-zero before the result line:
    bounds, the codes-fed time and the launch floor.  With ``--parent DIR``
    (a checkout of an earlier tree, e.g. ``git archive`` of the parent
    commit), the same inputs also go through that tree's K1 then K2, held
-   equal to this tree's output and timed at every one of these shapes;
+   equal to this tree's output and timed at every one of these shapes.
+   Then the same for mamba2-780m (phase 10's model): one decode step's 144
+   launches (M = 4; its codes and outputs held against K1's and K2's
+   plain versions on every projection) beside their bound, and us per
+   launch of both bodies at M 4, 8, 16, 64, 128 and 256 (the prefill's
+   real activations) at (1536, 3072) and (3072, 1536), with which body
+   the wrapper's tensor-core switch takes and whether it is the faster;
 6. K3, the paged-attention decode, against its plain version on the card:
    page_len {1, 4, 8} x (G, R) {(1,1), (2,2), (1,3)} x D {8, 16} plus
    smollm-135m's (3, 3, 64) at page_len 16, and the serving path's
@@ -67,7 +74,7 @@ Phases, in order; any failure exits non-zero before the result line:
    of 200-400 tokens that take the chunked path, 8 that share a 96-token
    prefix with an earlier request, 4 of them 1-15 tokens more, which ends
    the hit inside a page: copy on write, and 4 exact repeats), 32 new
-   tokens each.  In f32, at the first 8 of the 30 layers (to keep the
+   tokens each.  In f32, at the first 4 of the 30 layers (to keep the
    script's time), the gather read and K3 give equal tokens for every
    request, float and quantized (these audited runs synchronise
    with the host, so they run under ``engine.eager()``).  In bf16, K3
@@ -101,7 +108,7 @@ Phases, in order; any failure exits non-zero before the result line:
    no NaN;
 9. the scheduler of phase 7 (model, trace, ``ServeConfig``) with
    ``kv_quant=True, kv_bits=4``.  In f32 with float projections, at the
-   first 8 of the 30 layers (to keep the script's time), the
+   first 4 of the 30 layers (to keep the script's time), the
    quantized-gather read and K4: every K4 call within f32 tolerance of
    the dequantize-and-gather math on the same inputs, and tokens equal
    unless the two runs wrote a different K/V code (these audited runs
@@ -121,10 +128,29 @@ Phases, in order; any failure exits non-zero before the result line:
    version's time and two contexts: gathering the table's code pages and
    scales, dequantizing only those, then
    ``F.scaled_dot_product_attention`` (``library_ms``), and dequantizing
-   the whole pool, then ``_paged_gather`` + the same SDPA.
+   the whole pool, then ``_paged_gather`` + the same SDPA;
+10. full-width mamba2-780m (48 layers, d 1536, 48 SSD heads x 64, state
+   128; random weights from seed 0) in bf16.  One-shot through
+   ``greedy_generate`` at batch 4, prompt 64, 32 new tokens: float, then
+   quantized with stats, then on packed planes, each as a graph and under
+   ``engine.eager()``, held equal in tokens and stats; K2 launches 144 x
+   32 (48 layers x wz, wx, out_proj x 32 forwards) by census x replays
+   and by the wrappers' count, K1, K3 and K4 none; one decode step as its
+   own program: its graph nodes, replayed device ms and eager ms.  The
+   bytes one decode step moves, split into projection weights or planes
+   and SSM/conv state (from the model's shapes).  Then phase 7's trace and
+   ``ServeConfig`` through ``ServeScheduler``, quantized on packed planes
+   with stats, as graphs and under ``engine.eager()``, held equal in
+   tokens, stats, forwards and every tick's page table: tok/s, ms per
+   decode step (host clock, and the tick graph replayed alone), graph
+   nodes per step, ``compile_stats()``, hit rate and snapshots taken.
+   Last, three requests sharing a 64-token prefix (``chunked="always"``,
+   ``chunk_len == page_len == 16``, the first served before the other
+   two are submitted): 2 hits through SSM snapshots, tokens equal to the
+   same requests served without the prefix cache.
 
-Prints a ``serving:`` line (graph and eager tok/s of phases 4, 7 and
-9), a ``kernels:`` line, the JSON kernel table and, last, the result
+Prints a ``serving:`` line (graph and eager tok/s of phases 4, 7, 9 and
+10), a ``kernels:`` line, the JSON kernel table and, last, the result
 line ``{"ok": true, "device": {...}}``.  It imports nothing of JAX and
 nothing of the JAX package.
 """
@@ -148,9 +174,12 @@ INT32_OPS_PER_S = 67e12             # CUDA-core 32-bit rate (f32 figure)
 BF16_FLOPS_PER_S = 989e12           # dense bf16 tensor cores
 PHASE3_M = [1, 4, 8, 16, 17, 63, 64, 128, 256]
 PHASE3_SCALES = [1.0, 0.37, 2.0 ** -3]
-MAIN_KN = [(576, 576), (576, 192), (576, 1536), (1536, 576)]
+MAIN_KN = [(576, 576), (576, 192), (576, 1536), (1536, 576),
+           (1536, 3072), (3072, 1536)]      # smollm-135m, then mamba2-780m
 BATCH, PROMPT, NEW = 4, 64, 32
 PROJ = ["wq", "wk", "wv", "wo", "gate", "up", "down"]
+MAMBA_PROJ = ["wz", "wx", "out_proj"]
+MAMBA_M = [4, 8, 16, 64, 128, 256]   # phase 5's rows at the mamba shapes
 F32_TOL = (2e-5, 2e-6)              # rtol, atol (tests/test_paged_attention)
 BF16_TOL = (0.0, 2e-2)
 SERVE = dict(max_slots=8, max_len=512, buckets=(16, 32, 64, 128),
@@ -158,7 +187,7 @@ SERVE = dict(max_slots=8, max_len=512, buckets=(16, 32, 64, 128),
              prefix_cache=True, attn_splits=2)
 SERVE_NEW = 32
 KV_BITS = 4
-F32_LAYERS = 8                      # depth of phases 7 and 9's f32 runs
+F32_LAYERS = 4                      # depth of phases 7 and 9's f32 runs
 # phases 6 and 8 at the serving path's geometry (page_len 16, 32 table
 # columns): rows long enough that every warp of a block walks several
 # pages, at smollm-135m's (G, R, D) and at D = 128 and R = 8
@@ -481,6 +510,9 @@ def main() -> None:
     # -- phase 5: kernel times at the decode, chunk and prefill shapes -----
     t = phase5(torch, dev, g, card, cfg, params, ctx.capture, step_calls,
                prefill_calls, l2_ops, bm_ops, args.parent)
+    # the same for K2 at mamba2-780m's shapes, on phase 10's model
+    mamba = mamba_model(torch, dev, bm_ops)
+    t_mamba = phase5_mamba(torch, dev, card, mamba, bm_ops)
 
     # -- phase 6: K3 against its plain version ------------------------------
     k3_err = phase6(torch, dev, pa_ops)
@@ -497,11 +529,16 @@ def main() -> None:
     k4 = phase9(torch, dev, card, pa_ops, l2_ops, bm_ops)
     k4_err = max(k4_err, k4["max_abs_err"])
     print(f"  (phases 8-9 done at {time.perf_counter() - t_main:.0f} s)")
+
+    # -- phase 10: full-width mamba2-780m, one-shot and scheduler ----------
+    m10 = phase10(torch, dev, card, mamba, l2_ops, bm_ops, pa_ops)
+    print(f"  (phase 10 done at {time.perf_counter() - t_main:.0f} s)")
     serving = {"phase4": {tag: {
         "graph_tok_s": BATCH * NEW / r["t_graph"],
         "eager_tok_s": BATCH * NEW / r["t_eager"],
         "capture_ms": r["capture_ms"]} for tag, r in gen_runs.items()},
-        "phase7": k3["serve"], "phase9": k4["serve"]}
+        "phase7": k3["serve"], "phase9": k4["serve"],
+        "phase10": m10["serve"]}
     print(f"serving ({card}): {json.dumps(serving)}")
 
     table = []
@@ -515,6 +552,10 @@ def main() -> None:
         entry = {"name": kname, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launches[kname],
                  "max_abs_err": err, **t[kname]}
+        if kname == "bitplane_matmul":
+            # the mamba path: launches of phase 10's quantized one-shot run
+            # (census x replays), times at its decode step (phase 5)
+            entry["mamba2_780m"] = {"launches": m10["launches"], **t_mamba}
         table.append(entry)
     table.append({
         "name": "paged_attention", "route": "cuda",
@@ -754,6 +795,51 @@ def launch_floor(torch, bm_ops, m, k, n, n_bits, packed, tc):
     check(rc == 0, f"launch floor {m}x{k}x{n} failed: {rc}")
 
 
+def k2_decode_step(torch, bm_ops, step_calls, capture):
+    """One decode step's recorded K2 calls (``recorded``) and their
+    ``QuantCtx`` capture as runnable steps: ``(layouts, run(lay), plain,
+    floor(lay), bounds)``, ``layouts`` the step's planes unpacked and
+    packed, ``bounds[lay]`` = (ms, "bytes" | "operations")."""
+    from repro_torch.core.bitplane import pack_planes
+
+    packed = {id(c[2]): pack_planes(c[2], axis=0) for c in step_calls}
+    layouts = {"unpacked": [c[2] for c in step_calls],
+               "packed": [packed[id(c[2])] for c in step_calls]}
+
+    def run(lay):
+        def go():
+            for (x, a, _, nb), planes in zip(step_calls, layouts[lay]):
+                bm_ops.log2_bitplane_matmul(x, a, planes, nb)
+        return go
+
+    def plain():
+        for x, a, planes, nb in step_calls:
+            bm_ops.log2_bitplane_matmul_plain(x, a, planes, nb)
+
+    def floor(lay):
+        def go():
+            for x, _, planes, nb in step_calls:
+                m, k = x.shape
+                n = planes.shape[2]
+                launch_floor(torch, bm_ops, m, k, n, nb, lay == "packed",
+                             bm_ops.tensor_core_body(m, n, nb))
+        return go
+
+    bounds = {}
+    for lay in layouts:
+        nbytes = nops = 0.0
+        for (x, _, planes, _), (_, exp, *_) in zip(step_calls, capture):
+            b, _ = k2_bound(torch, bm_ops, exp, planes.shape[2],
+                            lay == "packed", x.element_size())
+            nbytes += b
+            # the integer body: a multiply-add per (m, k, n)
+            nops += 2 * x.shape[0] * x.shape[1] * planes.shape[2]
+        by, op = nbytes / HBM_BYTES_PER_S, nops / INT32_OPS_PER_S
+        bounds[lay] = (max(by, op) * 1e3, "bytes" if by >= op
+                       else "operations")
+    return layouts, run, plain, floor, bounds
+
+
 def phase5(torch, dev, g, card, cfg, params, capture, step_calls,
            prefill_calls, l2_ops, bm_ops, parent=None) -> dict:
     """Device ms per decode step by CUDA-graph replay of the step's real
@@ -764,19 +850,8 @@ def phase5(torch, dev, g, card, cfg, params, capture, step_calls,
 
     check(len(step_calls) == len(capture) == cfg.n_layers * len(PROJ),
           f"recorded {len(step_calls)} step calls")
-    packed = {id(c[2]): pack_planes(c[2], axis=0) for c in step_calls}
-    layouts = {"unpacked": [c[2] for c in step_calls],
-               "packed": [packed[id(c[2])] for c in step_calls]}
-
-    def k2_step(lay):
-        def run():
-            for (x, a, _, nb), planes in zip(step_calls, layouts[lay]):
-                bm_ops.log2_bitplane_matmul(x, a, planes, nb)
-        return run
-
-    def k2_plain_step():
-        for x, a, planes, nb in step_calls:
-            bm_ops.log2_bitplane_matmul_plain(x, a, planes, nb)
+    layouts, k2_step, k2_plain_step, floor_step, bounds = k2_decode_step(
+        torch, bm_ops, step_calls, capture)
 
     def k1_step():
         for xs, *_ in capture:
@@ -798,15 +873,6 @@ def phase5(torch, dev, g, card, cfg, params, capture, step_calls,
                 bm_ops.bitplane_matmul(exp, sign, planes, nb)
         return run
 
-    def floor_step(lay):
-        def run():
-            for x, _, planes, nb in step_calls:
-                m, k = x.shape
-                n = planes.shape[2]
-                launch_floor(torch, bm_ops, m, k, n, nb, lay == "packed",
-                             bm_ops.tensor_core_body(m, n, nb))
-        return run
-
     blk = params["blocks"][0]
     weights = [(blk[p] if p in ("wq", "wk", "wv", "wo") else blk["mlp"][p])
                for p in PROJ]
@@ -818,18 +884,6 @@ def phase5(torch, dev, g, card, cfg, params, capture, step_calls,
             for a, w in zip(acts, weights):
                 torch.matmul(a, w[r])
 
-    bounds = {}
-    for lay in layouts:
-        nbytes = nops = 0.0
-        for (x, _, planes, _), (_, exp, *_) in zip(step_calls, capture):
-            b, _ = k2_bound(torch, bm_ops, exp, planes.shape[2],
-                            lay == "packed", x.element_size())
-            nbytes += b
-            # the integer body: a multiply-add per (m, k, n)
-            nops += 2 * x.shape[0] * x.shape[1] * planes.shape[2]
-        by, op = nbytes / HBM_BYTES_PER_S, nops / INT32_OPS_PER_S
-        bounds[lay] = (max(by, op) * 1e3, "bytes" if by >= op
-                       else "operations")
     k1_bytes = sum(c[0].numel() * (c[0].element_size() + 2) for c in capture)
     ms = {lay: graph_ms(torch, k2_step(lay)) for lay in layouts}
     ms_again = {lay: graph_ms(torch, k2_step(lay)) for lay in layouts}
@@ -1303,9 +1357,15 @@ def profiled_tick(torch, sched) -> dict:
 
 def tick_replay_ms(torch, sched, reps: int = 5) -> float:
     """Device time of one replay of the scheduler's captured tick graph
-    (CUDA events over ``reps`` replays, after the trace drained: the
-    replays rewrite junk rows of an idle pool)."""
+    (after the trace drained: the replays rewrite junk rows of an idle
+    pool)."""
     (entry,) = sched.programs()["tick"].entries()
+    return replay_ms(torch, entry, reps)
+
+
+def replay_ms(torch, entry, reps: int = 5) -> float:
+    """Device time of one replay of a program's captured graph (CUDA
+    events over ``reps`` replays, after one unmeasured)."""
     entry.graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -2067,6 +2127,422 @@ def phase9(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
                 scope=f"one decode step: {cfg.n_layers} launches, B={b}, "
                       f"{full} full pages, splits {splits}, n_bits "
                       f"{KV_BITS}")
+
+
+def mamba_model(torch, dev, bm_ops) -> dict:
+    """Full-width mamba2-780m in bf16 from seed 0 (phases 5 and 10): its
+    params, quantized on unpacked and on packed planes, the prompt, and
+    the K2 calls of one quantized prefill and of one decode step, whose
+    codes and outputs are held against K1's and K2's plain versions."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.logquant import LogQuantized, log2_quantize
+    from repro_torch.core.shiftadd import QuantCtx, shiftadd_matmul_bitplane
+    from repro_torch.models.model import init_caches, init_params
+    from repro_torch.models.quantize import quantize_model_params
+    from repro_torch.serving import engine
+
+    t0 = time.perf_counter()
+    cfg = get_config("mamba2-780m")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, generator=gen, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    qparams = quantize_model_params(cfg, params)
+    pparams = quantize_model_params(cfg, params, pack=True)
+    caches = init_caches(cfg, BATCH, PROMPT + 1, device=dev)
+    prefill_calls = recorded(bm_ops, lambda: engine.make_prefill_step(
+        cfg, True)(qparams, {"tokens": prompt}, caches))
+    logits, caches = prefill_calls.result
+    ctx = QuantCtx(capture=[])
+    step_calls = recorded(bm_ops, lambda: engine.make_serve_step(cfg, ctx)(
+        qparams, caches, torch.argmax(logits, -1).to(torch.int32)[:, None]))
+    step_logits, _ = step_calls.result
+    n = cfg.n_layers * len(MAMBA_PROJ)
+    check(len(step_calls) == len(ctx.capture) == len(prefill_calls) == n,
+          f"mamba: {len(prefill_calls)} prefill and {len(step_calls)} step "
+          f"calls of K2, expected {n} each")
+    check(bool(torch.isfinite(logits.float()).all()
+               and torch.isfinite(step_logits.float()).all()),
+          "mamba: non-finite logits")
+    for i, (xs, exp, sign, planes, y) in enumerate(ctx.capture):
+        what = f"mamba layer {i // 3} {MAMBA_PROJ[i % 3]}"
+        ref = log2_quantize(xs)
+        check(torch.equal(exp, ref.exp) and torch.equal(sign, ref.sign),
+              f"K2's codes differ from K1's plain version on {what}")
+        check(torch.equal(y, shiftadd_matmul_bitplane(
+            LogQuantized(exp, sign), planes)),
+            f"K2 differs from its plain version on {what}")
+    torch.cuda.synchronize()
+    print(f"mamba2-780m: {cfg.n_layers}L d={cfg.d_model} "
+          f"{cfg.ssm_heads} SSD heads x {cfg.ssm_head_dim}, state "
+          f"{cfg.ssm_state}, vocab {cfg.vocab_size}, {cfg.dtype}, seed 0: "
+          f"built and quantized (unpacked and packed planes) in "
+          f"{time.perf_counter() - t0:.1f} s; one decode step's {n} K2 "
+          f"launches (M = {BATCH}) bit-equal to K1's and K2's plain versions "
+          f"on their real activations")
+    return dict(cfg=cfg, params=params, qparams=qparams, pparams=pparams,
+                prompt=prompt, prefill_calls=prefill_calls,
+                step_calls=step_calls, capture=ctx.capture)
+
+
+def phase5_mamba(torch, dev, card, mb, bm_ops) -> dict:
+    """K2 at the mamba2-780m shapes: one decode step's 144 launches by
+    CUDA-graph replay beside their bound, and us per launch of both
+    bodies at ``MAMBA_M`` rows of the prefill's real activations."""
+    from repro_torch.core.bitplane import pack_planes
+    from repro_torch.core.logquant import log2_quantize
+
+    cfg, step_calls, capture = mb["cfg"], mb["step_calls"], mb["capture"]
+    layouts, k2_step, plain_step, floor_step, bounds = k2_decode_step(
+        torch, bm_ops, step_calls, capture)
+
+    weights = [mb["params"]["blocks"][0][p] for p in MAMBA_PROJ]
+    acts = [torch.randn((BATCH, w.shape[1]), generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev, dtype=torch.bfloat16)
+        for w in weights]
+
+    def matmul_step():
+        for r in range(cfg.n_layers):
+            for a, w in zip(acts, weights):
+                torch.matmul(a, w[r])
+
+    ms = {lay: graph_ms(torch, k2_step(lay)) for lay in layouts}
+    t = {"ms": ms["unpacked"], "ms_packed": ms["packed"],
+         "plain_ms": graph_ms(torch, plain_step),
+         "bound_ms": bounds["unpacked"][0], "bound_by": bounds["unpacked"][1],
+         "bound_ms_packed": bounds["packed"][0],
+         "bound_by_packed": bounds["packed"][1], "library_ms": None,
+         "eager_ms": eager_ms(torch, k2_step("unpacked")),
+         "eager_ms_packed": eager_ms(torch, k2_step("packed")),
+         "launch_floor_ms": graph_ms(torch, floor_step("unpacked")),
+         "launch_floor_ms_packed": graph_ms(torch, floor_step("packed")),
+         "context_matmul_ms": graph_ms(torch, matmul_step),
+         "scope": f"one mamba2-780m decode step: {len(step_calls)} launches "
+                  f"(48 layers x wz, wx, out_proj), M={BATCH}"}
+    print(f"phase 5, mamba2-780m shapes: one decode step (M = {BATCH}) = "
+          f"{len(step_calls)} launches on the step's real inputs, CUDA-graph "
+          f"replay, on {card}")
+    for lay in layouts:
+        sfx = "" if lay == "unpacked" else "_packed"
+        print(f"  K2 {lay} planes: {t['ms' + sfx]:.4f} ms per step "
+              f"({t['ms' + sfx] / len(step_calls) * 1e3:.2f} us per launch), "
+              f"bound {t['bound_ms' + sfx]:.5f} ms ({t['bound_by' + sfx]}), "
+              f"issued eagerly {t['eager_ms' + sfx]:.4f} ms, launch floor "
+              f"{t['launch_floor_ms' + sfx]:.4f} ms")
+    print(f"  K2 plain version {t['plain_ms']:.4f} ms; context: bf16 "
+          f"torch.matmul of the same {len(step_calls)} shapes "
+          f"{t['context_matmul_ms']:.4f} ms (not K2's function; the port "
+          f"never calls it)")
+
+    by_shape = {}
+    for x, a, planes, nb in mb["prefill_calls"]:
+        by_shape.setdefault((x.shape[1], planes.shape[2]), []).append(
+            (x, a, planes, pack_planes(planes, axis=0), nb))
+    per_launch = {}
+    for (kk, nn), calls in sorted(by_shape.items()):
+        for m in MAMBA_M:
+            row = {}
+            codes = [log2_quantize(c[0][:m].float() / c[1]) for c in calls]
+            for lay_i, lay in ((2, "unpacked"), (3, "packed")):
+                for tc in (False, True):
+                    row[f"{lay}_{'tc' if tc else 'int'}_us"] = graph_ms(
+                        torch, lambda: [bm_ops.log2_bitplane_matmul(
+                            c[0][:m], c[1], c[lay_i], c[4], tensor_cores=tc)
+                            for c in calls], reps=5) / len(calls) * 1e3
+                b, o = k2_bound(torch, bm_ops, codes[0].exp, nn,
+                                lay == "packed", calls[0][0].element_size())
+                row[f"{lay}_bound_us"] = max(b / HBM_BYTES_PER_S,
+                                             o / BF16_FLOPS_PER_S) * 1e6
+            auto = "tc" if bm_ops.tensor_core_body(m, nn, 4) else "int"
+            fast = {lay: min(("int", "tc"),
+                             key=lambda b: row[f"{lay}_{b}_us"])
+                    for lay in ("unpacked", "packed")}
+            row.update(auto=auto, faster=fast,
+                       switch_holds=all(f == auto for f in fast.values()))
+            per_launch[f"{m}x{kk}x{nn}"] = row
+            print(f"  M={m} {kk}x{nn} ({len(calls)} launches), us per "
+                  f"launch: " + ", ".join(
+                      f"{lay} int {row[lay + '_int_us']:.2f} / tc "
+                      f"{row[lay + '_tc_us']:.2f} (bound "
+                      f"{row[lay + '_bound_us']:.3f})"
+                      for lay in ("unpacked", "packed"))
+                  + f"; the switch takes {auto}, the faster is "
+                  f"{fast['unpacked']} unpacked / {fast['packed']} packed: "
+                  + ("holds" if row["switch_holds"] else "does not hold"))
+    t["per_launch_us"] = per_launch
+    held = sum(r["switch_holds"] for r in per_launch.values())
+    print(f"  tensor-core switch (TC_MIN_ROWS {bm_ops.TC_MIN_ROWS}, "
+          f"TC_MIN_OUTPUTS {bm_ops.TC_MIN_OUTPUTS}) takes the faster body "
+          f"on both layouts at {held} of {len(per_launch)} mamba shapes "
+          f"(informational; not retuned here)")
+    return t
+
+
+def mamba_step_bytes(cfg, batch: int, tile_fraction: float) -> dict:
+    """Bytes one mamba decode step of ``batch`` rows moves, from the
+    model's shapes: each weight or plane read once, the SSM state and
+    conv window read and written once.  ``planes_read`` scales the packed
+    planes by the step's tile-granular traffic fraction (the skip rule)."""
+    d, di, n, h, w = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                      cfg.ssm_heads, cfg.conv_width)
+    conv_dim = di + 2 * n
+    el = 2                                          # bf16
+    layers = cfg.n_layers
+    qproj = 2 * d * di + di * d                     # wz, wx, out_proj
+    other = (d * (2 * n + h) + w * conv_dim + conv_dim + di + d) * el \
+        + 3 * h * 4                                 # wb wc wdt conv norms
+    out = {
+        "float_projections": layers * qproj * el,
+        "planes_unpacked": layers * 8 * qproj,
+        "planes_packed": layers * qproj,
+        "planes_read_packed": layers * qproj * tile_fraction,
+        "float_other_weights": layers * other,
+        "lm_head": cfg.vocab_size * d * el,
+        "ssm_state_rw": 2 * batch * layers * h * cfg.ssm_head_dim * n * 4,
+        "conv_state_rw": 2 * batch * layers * (w - 1) * conv_dim * el,
+    }
+    state = out["ssm_state_rw"] + out["conv_state_rw"]
+    rest = out["float_other_weights"] + out["lm_head"]
+    out["step_float"] = out["float_projections"] + rest + state
+    out["step_packed"] = out["planes_packed"] + rest + state
+    out["state_share_packed"] = state / out["step_packed"]
+    return out
+
+
+def phase10(torch, dev, card, mb, l2_ops, bm_ops, pa_ops) -> dict:
+    from repro_torch.models.model import init_caches
+    from repro_torch.serving import ServeConfig, ServeScheduler, engine
+
+    t_phase = time.perf_counter()
+    cfg, prompt = mb["cfg"], mb["prompt"]
+    kernels = (l2_ops.log2quant, bm_ops.bitplane_matmul,
+               pa_ops.paged_attention, pa_ops.paged_attention_quant)
+    per_fwd = cfg.n_layers * len(MAMBA_PROJ)
+    print(f"phase 10: {cfg.name} full width, bf16, one-shot batch {BATCH}, "
+          f"prompt {PROMPT}, {NEW} new tokens; then phase 7's trace through "
+          f"ServeScheduler; on {card}")
+
+    # -- one-shot: float, quantized with stats, packed planes -------------
+    runs = {}
+    for tag, p, quant, stats in (("float", mb["params"], False, False),
+                                 ("quant+stats", mb["qparams"], True, True),
+                                 ("packed", mb["pparams"], True, False)):
+        def call(p=p, quant=quant, stats=stats):
+            return engine.greedy_generate(cfg, p, prompt, NEW, quant=quant,
+                                          with_stats=stats)
+        _, t_cap = sync_time(torch, call)
+        (entry,) = engine.generate_fn(cfg, p, NEW, 0.0, quant, None, stats,
+                                      dev).program.entries()
+        before = entry.replays
+        for k in kernels:
+            k.launches = 0
+        out, t_graph = sync_time(torch, call)
+        replayed = {k: n * (entry.replays - before)
+                    for k, n in entry.census.items()}
+        check(all(k.launches == 0 for k in kernels),
+              f"mamba {tag}: a kernel ran outside the graph replay")
+        with engine.eager():
+            eout, t_eager = sync_time(torch, call)
+        counted = {k.__name__: k.launches for k in kernels}
+        want = per_fwd * NEW if quant else 0
+        for got, how in ((replayed, "replayed"), (counted, "eager")):
+            check(got["bitplane_matmul"] == want and got["log2quant"] == 0
+                  and got["paged_attention"] == 0
+                  and got["paged_attention_quant"] == 0,
+                  f"mamba {tag} {how}: launches {got}, expected K2 {want} "
+                  f"and no other kernel")
+        toks, st = out if stats else (out, None)
+        etoks, est = eout if stats else (eout, None)
+        check(torch.equal(toks, etoks) and (not stats or all(
+            torch.equal(st[k], est[k]) for k in st)),
+            f"mamba {tag}: graph tokens or stats differ from eager's")
+        check(toks.shape == (BATCH, NEW) and bool((toks >= 0).all())
+              and bool((toks < cfg.vocab_size).all()),
+              f"mamba {tag}: bad tokens")
+        runs[tag] = dict(toks=toks, stats=st, t_cap=t_cap, t_graph=t_graph,
+                         t_eager=t_eager, replayed=replayed,
+                         capture_ms=entry.capture_ms,
+                         nodes=engine.graph_nodes(entry))
+    check(torch.equal(runs["packed"]["toks"], runs["quant+stats"]["toks"]),
+          "mamba: packed-plane tokens differ from unpacked")
+    tile = runs["quant+stats"]["stats"]["plane_traffic_fraction"].cpu()
+    elem = runs["quant+stats"]["stats"]["element_traffic_fraction"].cpu()
+    check(bool((tile[:-1] > 0).all() and (tile[:-1] <= 1).all()
+               and (elem[:-1] > 0).all() and (elem <= tile + 1e-6).all()
+               and tile[-1] == 0), f"mamba: bad traffic stats {tile} {elem}")
+    new = BATCH * NEW
+    for tag, r in runs.items():
+        nodes = r["nodes"]
+        print(f"  one-shot {tag}: graph replay {r['t_graph']:.4f} s = "
+              f"{new / r['t_graph']:.1f} tok/s; engine.eager() "
+              f"{r['t_eager']:.4f} s = {new / r['t_eager']:.1f} tok/s; first "
+              f"call {r['t_cap']:.3f} s (capture {r['capture_ms']:.1f} ms); "
+              f"graph kernel nodes "
+              + (f"{nodes[0]} of {nodes[1]}" if nodes else "not available")
+              + f"; launches replayed {r['replayed']}; tokens and stats "
+              f"equal to engine.eager()'s")
+    print(f"  K2 = {cfg.n_layers} layers x {len(MAMBA_PROJ)} projections x "
+          f"{NEW} forwards = {per_fwd * NEW} launches per quantized run, by "
+          f"census x replays and by the wrappers in the eager run; packed "
+          f"tokens equal unpacked; plane traffic per decode step: tile "
+          f"{float(tile[:-1].mean()):.6f}, element "
+          f"{float(elem[:-1].mean()):.6f}")
+
+    # -- one decode step as its own program: nodes, device and eager ms ---
+    steps = {}
+    for tag, p, quant in (("float", mb["params"], False),
+                          ("quant", mb["qparams"], True),
+                          ("packed", mb["pparams"], True)):
+        caches = init_caches(cfg, BATCH, PROMPT + NEW, device=dev)
+        logits, caches = engine.make_prefill_step(cfg, quant)(
+            p, {"tokens": prompt}, caches)
+        step = engine.make_serve_step(cfg, quant)
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        prog = engine.Program(
+            lambda t, p=p, caches=caches, step=step: (step(p, caches, t)[0],),
+            name=f"mamba_step_{tag}", device=dev,
+            carry=[t for c in caches["layers"] for t in c.values()])
+        prog(tok)
+        (entry,) = prog.entries()
+        check(entry.census["bitplane_matmul"] == (per_fwd if quant else 0),
+              f"mamba step {tag}: census {entry.census}")
+        r_ms = replay_ms(torch, entry, reps=10)
+        with engine.eager():
+            e_ms = eager_ms(torch, lambda: prog(tok))
+        nodes = engine.graph_nodes(entry)
+        steps[tag] = {"replay_ms": r_ms, "eager_ms": e_ms, "nodes": nodes}
+        print(f"  one decode step ({tag}, B={BATCH}) as one graph: "
+              f"{steps[tag]['replay_ms']:.4f} ms device time replayed, "
+              f"{e_ms:.4f} ms issued eagerly; graph kernel nodes "
+              + (f"{nodes[0]} of {nodes[1]} ({nodes[0] / cfg.n_layers:.1f} "
+                 f"per layer)" if nodes else "not available"))
+
+    sb = mamba_step_bytes(cfg, BATCH, float(tile[:-1].mean()))
+    print(f"  bytes per decode step at batch {BATCH} (from the model's "
+          f"shapes): float wz/wx/out_proj {sb['float_projections'] / 1e9:.4f}"
+          f" GB, their planes unpacked {sb['planes_unpacked'] / 1e9:.4f} GB /"
+          f" packed {sb['planes_packed'] / 1e9:.4f} GB (packed tiles the skip"
+          f" rule reads {sb['planes_read_packed'] / 1e9:.4f} GB); other float"
+          f" weights {sb['float_other_weights'] / 1e9:.4f} GB, tied lm head "
+          f"{sb['lm_head'] / 1e9:.4f} GB; SSM state read + written "
+          f"{sb['ssm_state_rw'] / 1e9:.4f} GB, conv window "
+          f"{sb['conv_state_rw'] / 1e9:.6f} GB; a packed quantized step "
+          f"{sb['step_packed'] / 1e9:.4f} GB, of which state "
+          f"{sb['state_share_packed']:.4f}; a float step "
+          f"{sb['step_float'] / 1e9:.4f} GB")
+
+    # -- the scheduler: phase 7's trace, quantized on packed planes -------
+    trace = serve_trace(cfg.vocab_size)
+    snaps = {"n": 0}
+    snap = ServeScheduler._snap_slot
+
+    def counting(self, i):
+        snaps["n"] += 1
+        return snap(self, i)
+
+    sruns, taken = {}, {}
+    ServeScheduler._snap_slot = counting
+    try:
+        for mode in ("graph", "eager"):
+            snaps["n"] = 0
+            with (engine.eager() if mode == "eager"
+                  else contextlib.nullcontext()):
+                sruns[mode] = serve(torch, dev, cfg, trace, quant=True,
+                                    kernel=False, stats=True,
+                                    counters=kernels, pack=True)
+            taken[mode] = snaps["n"]
+    finally:
+        ServeScheduler._snap_slot = snap
+    serve_out = {"one_shot": {tag: {
+        "graph_tok_s": new / r["t_graph"], "eager_tok_s": new / r["t_eager"],
+        "capture_ms": r["capture_ms"]} for tag, r in runs.items()},
+        "decode_step": steps, "step_bytes": sb}
+    for mode in ("graph", "eager"):
+        res, sched, fwd, wall, run = sruns[mode]
+        launches = (run["replayed"] if mode == "graph" else
+                    {k.__name__: k.launches for k in kernels})
+        n_fwd = sum(fwd.values())
+        check(launches["bitplane_matmul"] == per_fwd * n_fwd
+              and launches["log2quant"] == 0
+              and launches["paged_attention"] == 0
+              and launches["paged_attention_quant"] == 0,
+              f"mamba scheduler {mode}: launches {launches}, expected K2 "
+              f"{per_fwd} x {n_fwd} forwards and no other kernel")
+        print(f"  scheduler packed quant+stats, {mode}: forwards {fwd}; "
+              f"launches {launches}; snapshots taken {taken[mode]}")
+        serve_out[f"scheduler/{mode}"] = tok_s(
+            f"mamba packed quant+stats {mode}", res, wall, run, sched)
+        st = sched.prefix_cache_stats()
+        serve_out[f"scheduler/{mode}"].update(
+            hit_rate=st["hit_rate"], snapshots=taken[mode])
+        if mode == "graph":
+            program_report(sched, "mamba packed quant+stats graph")
+            rep = tick_replay_ms(torch, sched)
+            (tick,) = sched.programs()["tick"].entries()
+            nodes = engine.graph_nodes(tick)
+            per_step = rep / sched.tick_steps
+            host = serve_out["scheduler/graph"]["step_ms"]
+            serve_out["scheduler/graph"].update(
+                replay_step_ms=per_step,
+                nodes_per_step=(nodes[0] / sched.tick_steps if nodes
+                                else None))
+            print(f"    tick graph replayed alone: {rep:.3f} ms device time "
+                  f"= {per_step:.3f} ms per decode step of "
+                  f"{sched.max_slots} slots (CUDA events, {card}); "
+                  + (f"{nodes[0] / sched.tick_steps:.0f} kernel nodes per "
+                     f"step; " if nodes else "")
+                  + f"device time / host time per decode step "
+                  f"{per_step / max(host, 1e-9):.4f}")
+            print(f"    prefix cache: hit_rate {st['hit_rate']:.6f}, "
+                  f"cached_tokens {st['cached_tokens']:.0f}/"
+                  f"{st['prompt_tokens']:.0f}, lookups hit "
+                  f"{st['lookup_hits']:.0f}/{st['lookups']:.0f}; "
+                  f"snapshots taken {taken[mode]} (only page-aligned "
+                  f"prompt boundaries leave one), resident "
+                  f"{sched._radix._n_snapshots}")
+            tile_r = sum(r.plane_traffic_fraction for r in res) / len(res)
+            check(0 < tile_r <= 1, f"mamba traffic fraction {tile_r}")
+    held_equal("mamba packed quant+stats", sruns["graph"], sruns["eager"])
+    print(f"  the graph run equals its engine.eager() run in tokens, "
+          f"per-request stats, forwards and every tick's page table; decode "
+          f"step {serve_out['scheduler/eager']['step_ms']:.3f} ms eager -> "
+          f"{serve_out['scheduler/graph']['step_ms']:.3f} ms graph (host "
+          f"clock)")
+
+    # -- three requests sharing a 64-token prefix: 2 snapshot hits --------
+    gen = torch.Generator().manual_seed(11)
+    prefix = torch.randint(0, cfg.vocab_size, (64,), generator=gen)
+    hit_prompts = [torch.cat([prefix, torch.randint(
+        0, cfg.vocab_size, (n,), generator=gen)]).numpy().astype("int32")
+        for n in (5, 9, 13)]
+    hit_toks = {}
+    for cache in (True, False):
+        sc = ServeConfig(**dict(SERVE, chunked="always", chunk_len=16,
+                                prefix_cache=cache),
+                         quant="pallas")
+        sched = ServeScheduler(cfg, mb["pparams"], sc)
+        sched.submit(hit_prompts[0], max_new=SERVE_NEW)
+        sched.run()
+        for p in hit_prompts[1:]:
+            sched.submit(p, max_new=SERVE_NEW)
+        res = sched.run()
+        check(len(res) == 3 and all(len(r.tokens) == SERVE_NEW for r in res),
+              f"prefix-hit run: {[(r.finish_reason, len(r.tokens)) for r in res]}")
+        hit_toks[cache] = [r.tokens for r in res]
+        if cache:
+            st = sched.prefix_cache_stats()
+            check(st["lookup_hits"] == 2 and st["cached_tokens"] == 128,
+                  f"prefix-hit run: {st}, expected 2 hits of 64 tokens")
+    check(hit_toks[True] == hit_toks[False],
+          "prefix-hit run: tokens differ from the same requests served "
+          "without the prefix cache")
+    print(f"  three requests sharing a 64-token prefix (chunked always, "
+          f"chunk_len = page_len = 16, graphs): 2 lookups hit, 128 tokens "
+          f"from shared pages and SSM snapshots; tokens equal the same "
+          f"requests served without the prefix cache")
+    print(f"  (phase 10 took {time.perf_counter() - t_phase:.0f} s)")
+    return {"serve": serve_out,
+            "launches": runs["quant+stats"]["replayed"]["bitplane_matmul"]}
 
 
 def _to(torch, tree, dev):

@@ -1,4 +1,4 @@
-"""Architecture registry of the port: only smollm-135m so far.
+"""Architecture registry of the port: smollm-135m and mamba2-780m so far.
 
 ``get_config(name)`` returns the published configuration, ``get_smoke``
 the reduced one the CPU tests use.
@@ -10,7 +10,8 @@ import importlib
 
 from repro_torch.models.model import ModelConfig
 
-ALIASES = {"smollm-135m": "smollm_135m", "smollm_135m": "smollm_135m"}
+ALIASES = {"smollm-135m": "smollm_135m", "smollm_135m": "smollm_135m",
+           "mamba2-780m": "mamba2_780m", "mamba2_780m": "mamba2_780m"}
 
 
 def _module(name: str):

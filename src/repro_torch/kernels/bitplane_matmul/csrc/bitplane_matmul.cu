@@ -71,9 +71,10 @@
 //   and its A fragments from one 16-bit code per (m, k) (A' with the plane
 //   threshold in its zero mantissa bits), 3 integer operations per
 //   fragment register and plane.  The w_t tile is stored by plain loads,
-//   not staged by cp.async or TMA: at the serving K (576, 1536) a cluster
-//   rank owns one or two K tiles, so a double buffer across K tiles would
-//   have at most one load to hide.  On an H100 (chip_smoke.py phase 5, the
+//   not staged by cp.async or TMA: at the serving K (576 and 1536 for
+//   smollm-135m, 1536 and 3072 for mamba2-780m) a cluster rank owns one
+//   to three K tiles, so a double buffer across K tiles would have at most
+//   two loads to hide.  On an H100 (chip_smoke.py phase 5, the
 //   smollm-135m prefill's 256 rows) a launch takes 25-65 us packed, 15-55x
 //   its bound: an empty kernel of its launch shape takes about 1 us,
 //   feeding the codes in (no division) saves 3-13%, and the unpacked

@@ -22,6 +22,10 @@ package's::
         [--prefix-cache] [--attn-kernel] [--attn-splits N] [--quant] \
         [--kv-quant [BITS]] [--config serve.json] [--dump-config [PATH]]
 
+``--arch`` takes every configuration of ``repro_torch.configs`` (smollm-135m,
+mamba2-780m); ``--kv-quant`` on a model without an attention layer is
+refused, as its pool holds recurrent state only.
+
 The device defaults to the card, where every serving step runs as a
 CUDA-graph replay (its first call captures it: the one-shot mode times a
 second, replayed generate after the capture); ``--device cpu`` runs the
@@ -225,6 +229,11 @@ def main(argv=None):
                     help="print (or write to PATH) the ServeConfig JSON the "
                          "flags derive, then exit")
     args = ap.parse_args(argv)
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if args.kv_quant is not None and "attn" not in cfg.pattern:
+        ap.error(f"--kv-quant: {cfg.name} has no attention layer; its pool "
+                 f"holds SSM/conv state only, which has no KV pages to "
+                 f"quantize")
 
     if args.dump_config is not None:
         text = _load_serve_config(args).to_json(indent=2)
@@ -236,7 +245,6 @@ def main(argv=None):
         return None
 
     dev = resolve_device(args.device)
-    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(cfg, generator=gen, device=dev)
     if args.quant:

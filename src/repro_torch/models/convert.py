@@ -18,7 +18,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.shiftadd import QuantizedLinearParams
-from repro_torch.models.model import ModelConfig, _check_dense
+from repro_torch.models.model import ModelConfig, _check_kinds
 
 
 def _tensor(a, dev: torch.device) -> torch.Tensor:
@@ -48,12 +48,13 @@ def _convert(leaf, dev: torch.device):
 
 def params_from_numpy(cfg: ModelConfig, tree: Any, device=None) -> Any:
     """The reference tree (numpy leaves) as the port's params on ``device``."""
-    _check_dense(cfg)
+    _check_kinds(cfg)
     return _convert(tree, resolve_device(device))
 
 
 def pool_from_numpy(tree: Any, device=None) -> Any:
     """A reference cache pool (``{"layers": (...), "length": ...}`` with
-    numpy leaves: dense or quantized pages, codes, scales, tail rings) as
+    numpy leaves: dense or quantized pages, codes, scales, tail rings, SSM
+    state and conv windows) as
     the port's tensors on ``device``."""
     return _convert(tree, resolve_device(device))

@@ -1,13 +1,19 @@
-"""Dense attention decoder (port of ``src/repro/models/model.py`` for
-``pattern=("attn",)``).
+"""Decoder models (port of ``src/repro/models/model.py`` for the ``attn``
+and ``mamba`` block kinds).
 
-Parameters keep the reference's layout: one block dict whose leaves are
-stacked over the ``R`` repeats (leading dim), weights ``(K, N)``.  Where
-the reference scans over repeats, :func:`forward` runs a Python loop over
-layer views of the stacked leaves.  Caches are ``(R, B, max_len, G, D)``
-per K/V and are updated in place; the paged slot pool
-(:func:`init_paged_pool`) is ``(R, n_pages, page_len, G, D)`` per K/V, or
-with ``kv_quant`` packed log2 codes, per-page scales and a tail ring.
+A model is a periodic ``pattern`` of block kinds repeated ``n_layers /
+len(pattern)`` times.  Parameters keep the reference's layout: one block
+dict per pattern position whose leaves are stacked over the ``R`` repeats
+(leading dim), weights ``(K, N)``.  Where the reference scans over
+repeats, :func:`forward` runs a Python loop over the repeats with the
+period unrolled inside, on layer views of the stacked leaves.  Caches are
+one tree per pattern position and are updated in place: an attention
+position holds ``(R, B, max_len, G, D)`` K/V (the paged slot pool of
+:func:`init_paged_pool`: ``(R, n_pages, page_len, G, D)``, or with
+``kv_quant`` packed log2 codes, per-page scales and a tail ring); a mamba
+position holds its per-slot recurrent state ``ssm (R, B, H, P, N)`` f32
+and conv window ``conv (R, B, W-1, conv_dim)``, dense even in a paged
+pool (a recurrence has no per-position rows to page).
 """
 
 from __future__ import annotations
@@ -24,14 +30,16 @@ from repro_torch.core.shiftadd import QuantizedLinearParams, as_quant_ctx
 from repro_torch.models.attention import (KVCache, PagedKVCache,
                                           QuantPagedKVCache, attention)
 from repro_torch.models.layers import rms_norm, swiglu
+from repro_torch.models.ssd import (SSMState, mamba2_block,
+                                    mamba2_init_state, write_rows_)
 
 Params = Dict[str, Any]
 
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """The dense-decoder fields of the reference's ``ModelConfig``, with
-    torch dtypes (the MoE, SSM and frontend fields belong to later slices
+    """The attention and SSM fields of the reference's ``ModelConfig``,
+    with torch dtypes (the MoE and frontend fields belong to later slices
     of the port).
 
     ``paged_attn_kernel``: ``"off"`` reads the paged pool through the
@@ -60,6 +68,13 @@ class ModelConfig:
     paged_attn_splits: int = 1
     kv_quant: bool = False
     kv_bits: int = 4
+    # SSM (Mamba-2)
+    ssm_state: int = 0
+    ssm_heads: int = 0
+    ssm_head_dim: int = 64
+    conv_width: int = 4
+    ssd_chunk: int = 256
+    sub_quadratic: bool = False
 
     @property
     def repeats(self) -> int:
@@ -67,14 +82,24 @@ class ModelConfig:
             f"{self.n_layers} layers not divisible by period {len(self.pattern)}"
         return self.n_layers // len(self.pattern)
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_heads * self.ssm_head_dim
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if tuple(cfg.pattern) != ("attn",):
-        raise NotImplementedError(f"pattern {cfg.pattern}: only the dense "
-                                  "attention decoder is ported")
+PORTED_KINDS = ("attn", "mamba")
+
+
+def _check_kinds(cfg: ModelConfig) -> None:
+    """Raise for a pattern with a block kind the port does not serve yet
+    (``attn_moe`` and ``mamba_moe`` wait for the MoE slice)."""
+    bad = [k for k in cfg.pattern if k not in PORTED_KINDS]
+    if bad:
+        raise NotImplementedError(f"pattern {cfg.pattern}: block kinds {bad} "
+                                  f"are not ported (ported: {PORTED_KINDS})")
 
 
 # ---------------------------------------------------------------------------
@@ -88,47 +113,104 @@ def _normal(shape, gen: torch.Generator, dev: torch.device, scale: float,
     return (x * scale).to(device=dev, dtype=dtype)
 
 
-def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device=None) -> Params:
-    """Random weights with the reference's shapes and scales: embeddings
-    N(0, 0.02), projections N(0, 1/sqrt(K)), norms 1.  ``generator``
-    defaults to one seeded with 0 on ``device``."""
-    _check_dense(cfg)
-    dev = resolve_device(device)
-    gen = generator or torch.Generator(device=dev).manual_seed(0)
-    dt, r = cfg.dtype, cfg.repeats
-    d, h, hkv, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                         cfg.head_dim, cfg.d_ff)
+def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator,
+                dev: torch.device) -> Params:
+    """One pattern position's block, its leaves stacked over repeats."""
+    dt, r, d = cfg.dtype, cfg.repeats, cfg.d_model
 
     def proj(k, n):
         return _normal((r, k, n), gen, dev, 1.0 / k ** 0.5, dt)
 
-    block = {
-        "ln1": torch.ones((r, d), dtype=dt, device=dev),
-        "wq": proj(d, h * hd), "wk": proj(d, hkv * hd),
-        "wv": proj(d, hkv * hd), "wo": proj(h * hd, d),
-        "ln2": torch.ones((r, d), dtype=dt, device=dev),
-        "mlp": {"gate": proj(d, ff), "up": proj(d, ff), "down": proj(ff, d)},
-    }
+    def const(shape, value, dtype=dt):
+        return torch.full((r, *shape), value, dtype=dtype, device=dev)
+
+    if kind == "attn":
+        h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        block = {"ln1": const((d,), 1.0), "wq": proj(d, h * hd),
+                 "wk": proj(d, hkv * hd), "wv": proj(d, hkv * hd),
+                 "wo": proj(h * hd, d)}
+    else:
+        h, n, di, w = (cfg.ssm_heads, cfg.ssm_state, cfg.d_inner,
+                       cfg.conv_width)
+
+        def conv(c):
+            return _normal((r, w, c), gen, dev, 0.2, dt)
+
+        block = {"ln1": const((d,), 1.0),
+                 "wz": proj(d, di), "wx": proj(d, di), "wb": proj(d, n),
+                 "wc": proj(d, n), "wdt": proj(d, h),
+                 "conv_wx": conv(di), "conv_bx": const((di,), 0.0),
+                 "conv_wb": conv(n), "conv_bb": const((n,), 0.0),
+                 "conv_wc": conv(n), "conv_bc": const((n,), 0.0),
+                 "dt_bias": const((h,), 0.0, torch.float32),
+                 "a_log": const((h,), 0.0, torch.float32),      # A = -1
+                 "d_skip": const((h,), 1.0, torch.float32),
+                 "norm": const((di,), 1.0),
+                 "out_proj": proj(di, d)}
+    if kind == "attn" or cfg.d_ff:
+        ff = cfg.d_ff
+        block["ln2"] = const((d,), 1.0)
+        block["mlp"] = {"gate": proj(d, ff), "up": proj(d, ff),
+                        "down": proj(ff, d)}
+    return block
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device=None) -> Params:
+    """Random weights with the reference's shapes and scales: embeddings
+    N(0, 0.02), projections N(0, 1/sqrt(K)), conv weights N(0, 0.2^2),
+    norms and ``d_skip`` 1, biases, ``dt_bias`` and ``a_log`` 0.  A mamba
+    block has an MLP only when ``d_ff`` is set.  ``generator`` defaults to
+    one seeded with 0 on ``device``."""
+    _check_kinds(cfg)
+    dev = resolve_device(device)
+    gen = generator or torch.Generator(device=dev).manual_seed(0)
+    blocks = tuple(_init_block(cfg, kind, gen, dev) for kind in cfg.pattern)
     params: Params = {
-        "embed": _normal((cfg.vocab_size, d), gen, dev, 0.02, dt),
-        "blocks": (block,),
-        "final_norm": torch.ones((d,), dtype=dt, device=dev),
+        "embed": _normal((cfg.vocab_size, cfg.d_model), gen, dev, 0.02,
+                         cfg.dtype),
+        "blocks": blocks,
+        "final_norm": torch.ones((cfg.d_model,), dtype=cfg.dtype, device=dev),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = _normal((d, cfg.vocab_size), gen, dev, 0.02, dt)
+        params["lm_head"] = _normal((cfg.d_model, cfg.vocab_size), gen, dev,
+                                    0.02, cfg.dtype)
     return params
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+def _ssm_leaves(cfg: ModelConfig, batch: int, dtype,
+                dev: torch.device) -> Params:
+    """A mamba position's zero per-slot state, stacked over repeats:
+    ``ssm (R, B, H, P, N)`` f32 and ``conv (R, B, W-1, conv_dim)`` in
+    ``dtype``."""
+    st = mamba2_init_state(cfg.repeats * batch, cfg, dtype, dev)
+    return {k: t.unflatten(0, (cfg.repeats, batch))
+            for k, t in st._asdict().items()}
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                 device=None, per_slot: bool = False) -> Params:
-    """Stacked (over repeats) K/V caches, zero-filled.  ``length`` is the
-    int 0, or with ``per_slot=True`` a ``(batch,)`` int32 tensor, one valid
-    length per row (the continuous-batching slot pool)."""
+    """Zero caches, one tree per pattern position: stacked K/V ``(R, B,
+    max_len, G, D)`` for ``attn``, the recurrent state for ``mamba``.
+    ``length`` is the int 0, or with ``per_slot=True`` a ``(batch,)``
+    int32 tensor, one valid length per row (the continuous-batching slot
+    pool)."""
+    _check_kinds(cfg)
     dev = resolve_device(device)
+    dtype = dtype or cfg.cache_dtype or cfg.dtype
+    shape = (cfg.repeats, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    layers = tuple(
+        {"k": torch.zeros(shape, dtype=dtype, device=dev),
+         "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        if kind == "attn" else _ssm_leaves(cfg, batch, dtype, dev)
+        for kind in cfg.pattern)
     length = (torch.zeros((batch,), dtype=torch.int32, device=dev)
               if per_slot else 0)
-    return _kv_caches(cfg, (batch, max_len), dtype, dev, length)
+    return {"layers": layers, "length": length}
 
 
 def init_paged_pool(cfg: ModelConfig, batch: int, max_len: int,
@@ -138,45 +220,47 @@ def init_paged_pool(cfg: ModelConfig, batch: int, max_len: int,
     ``(R, n_pages, page_len, G, D)`` indexed through host-built per-slot
     page tables (page 0 is the trash page, ``serving.kvpool``); per-slot
     ``(batch,)`` lengths.  ``max_len`` must be a multiple of ``page_len``
-    so a slot's gathered view has the dense slab's shape.
+    so a slot's gathered view has the dense slab's shape.  A mamba
+    position keeps the dense per-slot recurrent state of
+    :func:`init_caches`.
 
-    ``cfg.kv_quant=True`` stores the pool as packed log2 wire codes
-    ``{k,v}_codes (R, n_pages, page_len, G, D)`` (``code_dtype(kv_bits)``),
-    per-(page, head) power-of-two scale exponents ``{k,v}_scale (R,
-    n_pages, G)`` int32, and a dense per-slot tail ring ``{k,v}_tail (R,
-    batch, 2*page_len + 1, G, D)`` in the cache dtype holding each slot's
-    newest two pages (row ``2*page_len`` is the junk bin)."""
+    ``cfg.kv_quant=True`` stores the attention pool as packed log2 wire
+    codes ``{k,v}_codes (R, n_pages, page_len, G, D)``
+    (``code_dtype(kv_bits)``), per-(page, head) power-of-two scale
+    exponents ``{k,v}_scale (R, n_pages, G)`` int32, and a dense per-slot
+    tail ring ``{k,v}_tail (R, batch, 2*page_len + 1, G, D)`` in the cache
+    dtype holding each slot's newest two pages (row ``2*page_len`` is the
+    junk bin)."""
     if max_len % page_len:
         raise ValueError(f"max_len={max_len} must be a multiple of "
                          f"page_len={page_len}")
+    _check_kinds(cfg)
     dev = resolve_device(device)
-    length = torch.zeros((batch,), dtype=torch.int32, device=dev)
-    if not cfg.kv_quant:
-        return _kv_caches(cfg, (n_pages, page_len), dtype, dev, length)
-    _check_dense(cfg)
     dtype = dtype or cfg.cache_dtype or cfg.dtype
     r, g, d = cfg.repeats, cfg.n_kv_heads, cfg.head_dim
-    ct = code_dtype(cfg.kv_bits)
-    layer = {}
-    for k in ("k", "v"):
-        layer[f"{k}_codes"] = torch.zeros((r, n_pages, page_len, g, d),
-                                          dtype=ct, device=dev)
-        layer[f"{k}_scale"] = torch.zeros((r, n_pages, g),
-                                          dtype=torch.int32, device=dev)
-        layer[f"{k}_tail"] = torch.zeros((r, batch, 2 * page_len + 1, g, d),
-                                         dtype=dtype, device=dev)
-    return {"layers": (layer,), "length": length}
-
-
-def _kv_caches(cfg: ModelConfig, rows: Tuple[int, int], dtype,
-               dev: torch.device, length) -> Params:
-    """Zero K/V leaves ``(R, *rows, G, D)`` for the one attention period."""
-    _check_dense(cfg)
-    dtype = dtype or cfg.cache_dtype or cfg.dtype
-    shape = (cfg.repeats, *rows, cfg.n_kv_heads, cfg.head_dim)
-    return {"layers": ({"k": torch.zeros(shape, dtype=dtype, device=dev),
-                        "v": torch.zeros(shape, dtype=dtype, device=dev)},),
-            "length": length}
+    layers = []
+    for kind in cfg.pattern:
+        if kind != "attn":
+            layers.append(_ssm_leaves(cfg, batch, dtype, dev))
+            continue
+        layer = {}
+        if not cfg.kv_quant:
+            for k in ("k", "v"):
+                layer[k] = torch.zeros((r, n_pages, page_len, g, d),
+                                       dtype=dtype, device=dev)
+            layers.append(layer)
+            continue
+        ct = code_dtype(cfg.kv_bits)
+        for k in ("k", "v"):
+            layer[f"{k}_codes"] = torch.zeros((r, n_pages, page_len, g, d),
+                                              dtype=ct, device=dev)
+            layer[f"{k}_scale"] = torch.zeros((r, n_pages, g),
+                                              dtype=torch.int32, device=dev)
+            layer[f"{k}_tail"] = torch.zeros(
+                (r, batch, 2 * page_len + 1, g, d), dtype=dtype, device=dev)
+        layers.append(layer)
+    return {"layers": tuple(layers),
+            "length": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
 
 # ---------------------------------------------------------------------------
@@ -193,14 +277,45 @@ def _layer(tree, r: int):
     return tree[r]
 
 
-def _apply_block(cfg: ModelConfig, p: Params, x, positions, cache, quant,
-                 chunk_valid=None):
+def _layer_cache(c: Params, r: int, page_table, length):
+    """Layer ``r``'s cache of one pattern position: a K/V record for
+    attention (dense, paged or log2-quantized paged, by the leaves the
+    pool holds), the state views ``{"ssm", "conv"}`` for mamba."""
+    if "ssm" in c:
+        return {"ssm": c["ssm"][r], "conv": c["conv"][r]}
+    if page_table is not None and "k_codes" in c:
+        return QuantPagedKVCache(
+            **{f: c[f][r] for f in QuantPagedKVCache._fields[:6]},
+            page_table=page_table, length=length)
+    if page_table is not None:
+        return PagedKVCache(k=c["k"][r], v=c["v"][r], page_table=page_table,
+                            length=length)
+    return KVCache(k=c["k"][r], v=c["v"][r], length=length)
+
+
+def _apply_block(cfg: ModelConfig, kind: str, p: Params, x, positions,
+                 cache, quant, valid_len=None, chunk_valid=None,
+                 state_rows=None):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    out, new_kv = attention(p, h, positions, cfg, cache=cache, quant=quant,
-                            chunk_valid=chunk_valid)
+    if kind == "attn":
+        out, _ = attention(p, h, positions, cfg, cache=cache, quant=quant,
+                           chunk_valid=chunk_valid)
+    else:
+        # a chunk's per-row valid count doubles as the SSM pad mask (pad
+        # tokens get dt = 0), the same masking bucketed prefill uses
+        st = None if cache is None else SSMState(ssm=cache["ssm"],
+                                                 conv=cache["conv"])
+        out, new = mamba2_block(
+            p, h, cfg, state=st, quant=quant,
+            valid_len=chunk_valid if chunk_valid is not None else valid_len)
+        if new is not None:
+            write_rows_(cache["ssm"], new.ssm, state_rows)
+            write_rows_(cache["conv"], new.conv, state_rows)
     x = x + out
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu(p["mlp"], h2, quant=quant), new_kv
+    if "mlp" in p:
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + swiglu(p["mlp"], h2, quant=quant)
+    return x
 
 
 def forward(cfg: ModelConfig, params: Params, *, tokens: torch.Tensor,
@@ -208,31 +323,40 @@ def forward(cfg: ModelConfig, params: Params, *, tokens: torch.Tensor,
             return_stats: bool = False,
             valid_len: Optional[torch.Tensor] = None,
             chunk_valid: Optional[torch.Tensor] = None,
-            page_table: Optional[torch.Tensor] = None):
+            page_table: Optional[torch.Tensor] = None,
+            state_rows: Optional[torch.Tensor] = None):
     """Returns ``(logits, new_caches)``; ``caches`` enables prefill/decode
     (the cache tensors are written in place).
 
     ``caches["length"]`` is an int (whole batch) or a ``(B,)`` int32
     tensor (per-slot, continuous batching): positions, writes and masks
     follow each row's own length.  ``valid_len`` (``(B,)``, bucketed
-    prefill) marks right-padding; attention needs no mask for it (pads sit
-    causally after every real token), so the dense decoder only checks it
-    (the reference masks SSM state with it).  ``chunk_valid`` (``(B,)``,
-    chunked prefill) makes ``tokens`` one right-padded mid-prompt chunk per
-    row: only real rows are written, queries attend over the cache, and
-    each row's length advances by its ``chunk_valid`` (0 leaves the row's
-    cache as it was).  ``page_table`` (``(B, n_blocks)`` int32) switches
-    the attention caches to the paged pool of :func:`init_paged_pool`
-    (dense or log2-quantized, by the leaves the pool holds).
+    prefill) marks rows ``>= valid_len[b]`` of the input as right-padding:
+    SSM state and conv updates are masked so pad tokens neither decay nor
+    feed the recurrent state (attention needs no mask: pads sit causally
+    after every real token).  ``chunk_valid`` (``(B,)``, chunked prefill)
+    makes ``tokens`` one right-padded mid-prompt chunk per row: only real
+    rows are written, queries attend over the cache, the SSM path masks
+    pads as ``valid_len`` does, and each row's length advances by its
+    ``chunk_valid`` (0 leaves the row's cache as it was).  ``page_table``
+    (``(B, n_blocks)`` int32) switches the attention caches to the paged
+    pool of :func:`init_paged_pool` (dense or log2-quantized, by the
+    leaves the pool holds).  ``state_rows`` (``(B,)`` bool, the port's
+    own) names the rows whose SSM/conv state the call may advance; the
+    others keep theirs bit for bit (the slot pool's inactive slots,
+    ``serving.engine.make_slot_serve_step``): the reference selects the
+    old state back after its functional forward, the port selects as it
+    writes in place.
 
-    ``quant`` (bool | QuantCtx) routes the 7 projections of every layer
+    ``quant`` (bool | QuantCtx) routes every eligible projection (attention
+    ``wq wk wv wo``, MLP ``gate up down``, mamba ``wz wx out_proj``)
     through the QeiHaN path.  With ``return_stats=True`` a third element
     holds the weight-plane traffic summed over every quantized projection:
     ``plane_fetched``, ``plane_total``, ``plane_traffic_fraction`` (tile
     granular) and ``element_traffic_fraction`` (ASIC bank model); zeros on
     the float path.
     """
-    _check_dense(cfg)
+    _check_kinds(cfg)
     if valid_len is not None and chunk_valid is not None:
         raise ValueError("pass either valid_len (bucketed prefill) or "
                          "chunk_valid (chunked prefill), not both")
@@ -248,29 +372,18 @@ def forward(cfg: ModelConfig, params: Params, *, tokens: torch.Tensor,
         positions = base[:, None] + ar[None]
     else:
         positions = (base + ar).expand(b, s)
-    block = params["blocks"][0]
-    layer_cache = caches["layers"][0] if caches is not None else None
     traffic = []
     for r in range(cfg.repeats):
-        # the collect list lives for one layer, like the reference's
-        # per-period scan body; its per-layer sums stack over repeats
+        # the collect list lives for one period, like the reference's
+        # scan body; its per-period sums stack over repeats
         bctx = None if ctx is None else dataclasses.replace(
             ctx, collect=[] if return_stats else None)
-        if caches is None:
-            kv = None
-        elif page_table is not None and "k_codes" in layer_cache:
-            kv = QuantPagedKVCache(
-                **{f: layer_cache[f][r]
-                   for f in QuantPagedKVCache._fields[:6]},
-                page_table=page_table, length=base)
-        elif page_table is not None:
-            kv = PagedKVCache(k=layer_cache["k"][r], v=layer_cache["v"][r],
-                              page_table=page_table, length=base)
-        else:
-            kv = KVCache(k=layer_cache["k"][r], v=layer_cache["v"][r],
-                         length=base)
-        x, _ = _apply_block(cfg, _layer(block, r), x, positions, kv, bctx,
-                            chunk_valid=chunk_valid)
+        for i, kind in enumerate(cfg.pattern):
+            cache = (None if caches is None else _layer_cache(
+                caches["layers"][i], r, page_table, base))
+            x = _apply_block(cfg, kind, _layer(params["blocks"][i], r), x,
+                             positions, cache, bctx, valid_len=valid_len,
+                             chunk_valid=chunk_valid, state_rows=state_rows)
         if return_stats:
             coll = bctx.collect if bctx is not None else []
             zero = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -1,10 +1,12 @@
 """Attach the QeiHaN representation to a model's projections (port of
-``src/repro/models/quantize.py`` for the dense attention decoder).
+``src/repro/models/quantize.py`` for the ``attn`` and ``mamba`` blocks).
 
-Every attention ``wq/wk/wv/wo`` and MLP ``gate/up/down`` leaf gets a
-``QuantizedLinearParams`` under ``<name>_q``, stacked over repeats like
-the float leaf, which stays beside it.  ``pack=True`` stores the planes
-packed 8-to-a-byte along K (the int8-footprint deploy format).
+Every attention ``wq/wk/wv/wo``, mamba ``wz/wx/out_proj`` and dense MLP
+``gate/up/down`` leaf gets a ``QuantizedLinearParams`` under
+``<name>_q``, stacked over repeats like the float leaf, which stays beside
+it.  The mamba ``wb/wc/wdt`` projections stay float, as in the reference.
+``pack=True`` stores the planes packed 8-to-a-byte along K (the
+int8-footprint deploy format).
 """
 
 from __future__ import annotations
@@ -16,10 +18,11 @@ import torch
 from repro_torch.core.bitplane import pack_planes
 from repro_torch.core.shiftadd import (QuantizedLinearParams,
                                        quantized_linear_init)
-from repro_torch.models.model import ModelConfig, _check_dense
+from repro_torch.models.model import ModelConfig, _check_kinds
 
 _ATTN_PROJ = ("wq", "wk", "wv", "wo")
 _MLP_PROJ = ("gate", "up", "down")
+_MAMBA_PROJ = ("wz", "wx", "out_proj")
 
 
 def _quantize_stacked(w: torch.Tensor, act_scale: float = 1.0,
@@ -41,14 +44,19 @@ def _quantize_stacked(w: torch.Tensor, act_scale: float = 1.0,
 def quantize_model_params(cfg: ModelConfig, params: Dict[str, Any],
                           act_scale: float = 1.0,
                           pack: bool = False) -> Dict[str, Any]:
-    _check_dense(cfg)
-    blk = dict(params["blocks"][0])
-    for name in _ATTN_PROJ:
-        blk[name + "_q"] = _quantize_stacked(blk[name], act_scale, pack)
-    mlp = dict(blk["mlp"])
-    for name in _MLP_PROJ:
-        mlp[name + "_q"] = _quantize_stacked(mlp[name], act_scale, pack)
-    blk["mlp"] = mlp
+    _check_kinds(cfg)
+    blocks = []
+    for kind, block in zip(cfg.pattern, params["blocks"]):
+        blk = dict(block)
+        for name in _ATTN_PROJ if kind == "attn" else _MAMBA_PROJ:
+            blk[name + "_q"] = _quantize_stacked(blk[name], act_scale, pack)
+        if "mlp" in blk:
+            mlp = dict(blk["mlp"])
+            for name in _MLP_PROJ:
+                mlp[name + "_q"] = _quantize_stacked(mlp[name], act_scale,
+                                                     pack)
+            blk["mlp"] = mlp
+        blocks.append(blk)
     out = dict(params)
-    out["blocks"] = (blk,)
+    out["blocks"] = tuple(blocks)
     return out

@@ -1,8 +1,7 @@
 """Serving layer: prefill and single-token decode steps, the
 autoregressive generation loop, the slot-pool steps of continuous
 batching, and the program type that runs each of them as one CUDA graph
-(port of ``src/repro/serving/engine.py`` without its mesh plumbing and
-SSM-state masking).
+(port of ``src/repro/serving/engine.py`` without its mesh plumbing).
 
 Where the reference compiles a function into one XLA program with
 ``jax.jit``, the port captures it into a :class:`Program`: one
@@ -40,6 +39,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import gc
 import time
 import warnings
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
@@ -143,7 +143,9 @@ class Program:
     library loads, kernel attributes; host syncs raise there, under
     ``torch.cuda.set_sync_debug_mode("error")``), restores ``carry`` (the
     tensors the body advances) and ``generators`` (their seed and
-    offset), captures the body into the graph, with ``generators``
+    offset), collects Python's garbage (a dead program's graph destroyed
+    mid-capture would invalidate the capture), captures the body into the
+    graph with the cyclic collector paused, with ``generators``
     registered so that replays advance them, and replays it; every later
     call replays.  A capture that fails raises.  On the CPU, or under
     :func:`eager`, the body runs eagerly into the same buffers.  Returns
@@ -240,8 +242,18 @@ class Program:
         before = launch_counts()
         t0 = time.perf_counter()
         pool = () if self.mem_pool is None else (self.mem_pool,)
-        with torch.cuda.graph(graph, *pool):
-            out = self.body(*e.inputs)
+        # a dead program's graphs left in a reference cycle must not be
+        # destroyed by the cyclic collector in the middle of this capture:
+        # destroying a graph while a stream captures invalidates the capture
+        collect = gc.isenabled()
+        gc.collect()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, *pool):
+                out = self.body(*e.inputs)
+        finally:
+            if collect:
+                gc.enable()
         if hasattr(graph, "instantiate"):
             graph.instantiate()
         torch.cuda.synchronize(dev)
@@ -576,6 +588,25 @@ def reference_generate(cfg: ModelConfig, params, prompt: torch.Tensor,
 # slot-pool steps (continuous batching)
 # ---------------------------------------------------------------------------
 
+def _mask_recurrent_rows(layers, rows: torch.Tensor) -> None:
+    """In-place per-row select over the SSM/conv *recurrent* leaves of a
+    stacked cache ``layers`` tuple (leaf layout ``(R, B, ...)``): rows
+    where ``rows`` is False restart from zero state; attention K/V
+    (offset writes, masked and overwritten, never carried) is left alone.
+
+    A recurrence carries (junk tokens fed to a masked row would compound
+    into its state), so every slot-pool step selects rows' state: the
+    chunk step resets its ``fresh`` rows here, and the decode step's
+    forward applies the same select to each layer's new state as it
+    writes it (``forward(state_rows=active)``), which keeps an inactive
+    slot's state without a copy of the pool's."""
+    for c in layers:
+        if "ssm" in c:
+            for t in c.values():
+                keep = rows.reshape((1, -1) + (1,) * (t.dim() - 2))
+                t.copy_(torch.where(keep, t, 0))
+
+
 def make_slot_serve_step(cfg: ModelConfig, quant: QuantFlag = False,
                          with_stats: bool = False, *, paged: bool = False):
     """``(params, caches, tokens (B, 1), active (B,)[, page_table]) ->
@@ -583,7 +614,8 @@ def make_slot_serve_step(cfg: ModelConfig, quant: QuantFlag = False,
 
     Every row computes; ``active`` masks the bookkeeping: an inactive
     slot's ``length`` does not advance (its junk K/V row lands at the
-    frozen length, where the next real write overwrites it).
+    frozen length, where the next real write overwrites it) and its
+    SSM/conv state is left as it was.
     ``caches["length"]`` is the per-slot ``(B,)`` form.  ``paged=True``
     takes a ``page_table (B, n_blocks)`` and page-pool caches
     (``init_paged_pool``); with ``cfg.paged_attn_kernel != "off"`` the read
@@ -597,7 +629,8 @@ def make_slot_serve_step(cfg: ModelConfig, quant: QuantFlag = False,
             raise ValueError("a paged slot step needs a page_table")
         out = forward(cfg, params, tokens=tokens, caches=caches, quant=ctx,
                       return_stats=with_stats,
-                      page_table=page_table if paged else None)
+                      page_table=page_table if paged else None,
+                      state_rows=active)
         if with_stats:
             logits, new_caches, stats = out
         else:
@@ -646,7 +679,8 @@ def make_slot_prefill_chunk(cfg: ModelConfig, quant: QuantFlag = False,
     Each prefilling row feeds its next ``chunk_valid[b]`` prompt tokens
     (right-padded to the fixed slab) at its current ``length``; decoding
     or free rows ride along with ``chunk_valid == 0`` and keep their cache.
-    ``fresh`` rows ingest their first chunk: their length restarts at 0.
+    ``fresh`` rows ingest their first chunk: their length restarts at 0
+    and their SSM/conv state at zero.
     ``finishing`` rows hold the prompt's last token: their last-real
     logits replace their row of ``pool_logits``.  ``paged=True`` takes a
     ``page_table``; a prefix-hit admission enters with ``fresh`` False and
@@ -658,6 +692,7 @@ def make_slot_prefill_chunk(cfg: ModelConfig, quant: QuantFlag = False,
                    finishing, page_table=None):
         if paged and page_table is None:
             raise ValueError("a paged chunk step needs a page_table")
+        _mask_recurrent_rows(pool["layers"], torch.logical_not(fresh))
         caches = {"layers": pool["layers"],
                   "length": torch.where(fresh, 0, pool["length"])}
         out = forward(cfg, params, tokens=tokens, caches=caches, quant=ctx,

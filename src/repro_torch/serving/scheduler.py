@@ -1,6 +1,6 @@
 """Continuous-batching serve scheduler over a persistent slot pool (port of
-``src/repro/serving/scheduler.py`` for the dense attention decoder on one
-card).
+``src/repro/serving/scheduler.py`` for attention, Mamba-2 and hybrid
+decoders on one card).
 
 The one-shot engine (``serving/engine.py``) drains its whole batch before
 the next one starts.  This scheduler keeps the decode batch full under
@@ -32,6 +32,14 @@ skipping pays:
   power-of-two scale, each slot's two newest pages also dense in a tail
   ring; decode reads go through the quantized kernel (``attn_kernel``) or
   the dequantizing gather.
+* **Recurrent state** (``mamba`` blocks) — each slot's SSM/conv state is
+  dense per slot, even in a paged pool.  A decode step leaves an inactive
+  slot's state as it was, a fresh chunked admission starts from zero
+  state, and a prefix hit needs the state at its boundary: a device
+  snapshot of the donor slot's state, taken when its ingestion lands
+  exactly on the page-aligned prompt boundary (a row whose last chunk
+  lands there is held out of that tick's decode), kept on the radix node
+  under the ``snapshot_limit`` LRU, and restored into the hitting slot.
 
 Each device step is a :class:`~repro_torch.serving.engine.Program`, the
 port's counterpart of the reference's jitted programs, which on the card
@@ -45,13 +53,14 @@ their addresses for the scheduler's life.  :meth:`ServeScheduler.
 compile_stats` counts the programs' signatures as the reference counts
 its compiled programs.  Tokens and per-step traffic fractions come to the
 host once per tick.  The copy on write of a prefix hit's partial page,
-its tail-ring restore and its length write stay eager in-place writes
-(the reference's ``cow_pages`` / ``admit_hit`` programs).  Host state
+its tail-ring restore, its snapshot restore and its length write, and the
+snapshot itself, stay eager in-place writes and clones (the reference's
+``cow_pages`` / ``admit_hit`` / ``snap_slot`` programs).  Host state
 (slots, page tables, the queue) is numpy, as in the reference.  Not
 ported: the deprecated keyword-argument constructor, ``audit_programs``
 (it traces and lowers JAX programs for the reference's jaxpr/HLO
 auditor, which has no counterpart for a CUDA graph), ``mesh=`` /
-``mesh_spec`` and SSM state snapshots.
+``mesh_spec`` and the disaggregation hook ``_defer_decode``.
 """
 
 from __future__ import annotations
@@ -133,10 +142,12 @@ class _Slot:
     phase: str = "decode"               # "prefill" | "decode"
     prefill_pos: int = 0                # prompt tokens ingested so far
     first_token_time: float = float("nan")
-    # paged mode: every page this slot holds a reference on, and the
-    # prefix-hit length it was admitted with
+    # paged mode: every page this slot holds a reference on, the
+    # prefix-hit length it was admitted with, and the SSM/conv state
+    # snapshot at the cacheable prompt boundary (models with mamba blocks)
     pages: List[int] = dataclasses.field(default_factory=list)
     hit_len: int = 0
+    snapshot: Optional[tuple] = None
 
 
 class ServeScheduler:
@@ -198,6 +209,7 @@ class ServeScheduler:
         self.paged = paged = config.paged
         self.page_len = config.page_len if paged else 0
         self.prefix_cache = config.prefix_cache
+        self._has_ssm = "mamba" in cfg.pattern
         self.min_prefix_hit = config.min_prefix_hit
         self.attn_kernel = config.attn_kernel
         self.attn_splits = config.attn_splits
@@ -265,13 +277,17 @@ class ServeScheduler:
         common = dict(device=dev, bound=self._bound, mem_pool=(
             torch.cuda.graph_pool_handle() if dev.type == "cuda" else None))
         # what a tick's warm-up changes that the same call reads before
-        # writing it: the logits, the lengths and the trash page (a free
+        # writing it: the logits, the lengths, the trash page (a free
         # slot's all-trash table reads it as that slot's junk cache; the
-        # junk rows enter the batch-aggregate stats)
+        # junk rows enter the batch-aggregate stats) and every slot's
+        # SSM/conv state, which each step advances from its own value
         carry = [self._logits, self._pool["length"]]
-        if paged:
-            carry += [t[:, TRASH_PAGE] for layer in self._pool["layers"]
-                      for k, t in layer.items() if not k.endswith("_tail")]
+        for layer in self._pool["layers"]:
+            if "ssm" in layer:
+                carry += list(layer.values())
+            elif paged:
+                carry += [t[:, TRASH_PAGE] for k, t in layer.items()
+                          if not k.endswith("_tail")]
         # prefill: one signature per bucket; the slot write: one
         self._prefill = engine.Program(self._prefill_body, name="prefill",
                                        **common)
@@ -310,7 +326,8 @@ class ServeScheduler:
         """Write the prefilled 1-row cache and its logits into slot
         ``slot`` (``(1,)`` int64).  Paged: positions ``< true_len`` land at
         (``row[p // page_len]``, ``p % page_len``), the rest at the trash
-        page (the last of them wins it)."""
+        page (the last of them wins it); SSM/conv state keeps the dense
+        per-slot write."""
         layers = zip(self._pool["layers"], self._cache1["layers"])
         if self.paged:
             pos = torch.arange(self.max_len, device=self.device)[None]
@@ -318,6 +335,10 @@ class ServeScheduler:
                                self.page_len)
             page, off = slots.page[0], slots.off[0]
             for c_pool, c_slot in layers:
+                if "ssm" in c_pool:
+                    for k, t in c_pool.items():
+                        t.index_copy_(1, slot, c_slot[k].to(t.dtype))
+                    continue
                 if self.kv_quant:
                     self._quant_write(c_pool, c_slot, slot, true_len, row,
                                       slots)
@@ -327,9 +348,8 @@ class ServeScheduler:
                         :, slots.src].to(c_pool[k].dtype)
         else:
             for c_pool, c_slot in layers:
-                for k in ("k", "v"):
-                    c_pool[k].index_copy_(1, slot,
-                                          c_slot[k].to(c_pool[k].dtype))
+                for k, t in c_pool.items():
+                    t.index_copy_(1, slot, c_slot[k].to(t.dtype))
         self._pool["length"].index_copy_(0, slot, true_len)
         self._logits.index_copy_(0, slot,
                                  self._logits1.to(self._logits.dtype))
@@ -363,6 +383,8 @@ class ServeScheduler:
         page = int(self._table[i, tb])
         half = (tb % 2) * pl
         for c in self._pool["layers"]:
+            if "k_codes" not in c:
+                continue
             for k in ("k", "v"):
                 tail = c[f"{k}_tail"]
                 tail[:, i, half:half + pl] = dequantize_page_codes(
@@ -420,14 +442,30 @@ class ServeScheduler:
         return toks, fracs, cfrac
 
     def _cow(self, src: int, dst: int) -> None:
-        """Copy page ``src`` into page ``dst`` in every layer's K and V (a
-        quantized page's codes and scale together: codes mean nothing under
-        another page's scale; the per-slot tail rings are not paged)."""
+        """Copy page ``src`` into page ``dst`` in every attention layer's K
+        and V (a quantized page's codes and scale together: codes mean
+        nothing under another page's scale; the per-slot tail rings and
+        SSM/conv state are not paged)."""
         keys = (("k_codes", "v_codes", "k_scale", "v_scale")
                 if self.kv_quant else ("k", "v"))
         for c in self._pool["layers"]:
+            if "ssm" in c:
+                continue
             for k in keys:
                 c[k][:, dst] = c[k][:, src]
+
+    def _snap_slot(self, i: int) -> tuple:
+        """A device copy of slot ``i``'s SSM/conv state, one ``{"ssm",
+        "conv"}`` dict of ``(R, 1, ...)`` leaves per mamba position."""
+        return tuple({k: t[:, i:i + 1].clone() for k, t in c.items()}
+                     for c in self._pool["layers"] if "ssm" in c)
+
+    def _restore_snapshot(self, i: int, snapshot: tuple) -> None:
+        """Write a :meth:`_snap_slot` snapshot into slot ``i``."""
+        layers = [c for c in self._pool["layers"] if "ssm" in c]
+        for c, sn in zip(layers, snapshot):
+            for k, t in c.items():
+                t[:, i:i + 1].copy_(sn[k])
 
     # ------------------------------------------------------------------ API
 
@@ -556,6 +594,7 @@ class ServeScheduler:
                       if s is not None and s.phase == "prefill"]
         valid = np.zeros((self.max_slots,), np.int32)
         finishing = np.zeros((self.max_slots,), bool)
+        defer = np.zeros((self.max_slots,), bool)
         if chunk_rows:
             tokens = np.zeros((self.max_slots, self.chunk_len), np.int32)
             fresh = np.zeros((self.max_slots,), bool)
@@ -568,11 +607,19 @@ class ServeScheduler:
                 valid[i] = take
                 fresh[i] = s.prefill_pos == 0 and s.hit_len == 0
                 finishing[i] = s.prefill_pos + take >= s.req.prompt.size
+                # a snapshot needs the post-prompt SSM state before any
+                # decode step touches it: a last chunk that lands exactly
+                # on the cacheable boundary holds its row out of this
+                # tick's decode (it decodes next tick, with equal tokens)
+                defer[i] = (finishing[i] and self._wants_snapshot(s)
+                            and s.prefill_pos + take
+                            == self._cacheable_len(s.req.prompt.size))
         # a slot whose LAST chunk lands this tick decodes in the same tick:
         # the chunk writes its first-token logits before the decode steps
         decode_mask = np.array(
             [s is not None and not s.done
-             and (s.phase == "decode" or bool(finishing[i]))
+             and (s.phase == "decode"
+                  or bool(finishing[i] and not defer[i]))
              for i, s in enumerate(self._slots)])
 
         # chunk + decode in ONE program when both kinds are live
@@ -598,6 +645,12 @@ class ServeScheduler:
             s.prefill_pos += int(valid[i])
             if finishing[i]:
                 s.phase = "decode"
+            if (self._wants_snapshot(s) and s.prefill_pos
+                    == self._cacheable_len(s.req.prompt.size)):
+                # the post-tick state is the state at prefill_pos: the row
+                # was held out of (or not yet in) the decode steps, and an
+                # inactive row's recurrent state is left as it was
+                s.snapshot = self._snap_slot(i)
             if self.with_stats:
                 # the chunk forward's batch-aggregate traffic, attributed
                 # to the requests that prefilled this tick
@@ -650,6 +703,17 @@ class ServeScheduler:
             return True
         return self.chunked == "auto" and prompt_len > self.buckets[-1]
 
+    def _wants_snapshot(self, slot: _Slot) -> bool:
+        """A model with mamba blocks needs the recurrent state at the
+        cacheable prompt boundary for a prefix hit to be usable; it is
+        taken once, when ingestion lands exactly on that boundary."""
+        return (self._radix is not None and self._has_ssm
+                and slot.snapshot is None)
+
+    def _cacheable_len(self, prompt_len: int) -> int:
+        """Prompt tokens coverable by whole shared pages."""
+        return (prompt_len // self.page_len) * self.page_len
+
     def _alloc_pages(self, n: int) -> Optional[List[int]]:
         """Allocate ``n`` fresh pages, evicting LRU prefix-cache entries
         if the free list runs short — all or nothing, and eviction only
@@ -700,7 +764,9 @@ class ServeScheduler:
             # cap the hit at length-1: at least one suffix token must run
             # through prefill to produce the first decode logits
             hit = self._radix.lookup(prompt, max_hit=length - 1,
-                                     min_hit=self.min_prefix_hit)
+                                     need_snapshot=self._has_ssm,
+                                     min_hit=self.min_prefix_hit,
+                                     allow_partial=not self._has_ssm)
         shared = list(hit.pages) if hit is not None else []
         # hold every page the hit aliases (shared blocks and the COW
         # source) BEFORE allocating: allocation may evict radix entries
@@ -750,9 +816,12 @@ class ServeScheduler:
         self._table[slot_idx, :len(pages)] = pages
         self.prefix_stats["prompt_tokens"] += length
         if hit is not None:
-            # the slot resumes at the hit boundary and ingests only the
-            # suffix through the chunk path
+            # the slot resumes at the hit boundary (its SSM state from the
+            # hit's snapshot) and ingests only the suffix through the
+            # chunk path
             self._pool["length"][slot_idx] = hit.length
+            if hit.snapshot is not None:
+                self._restore_snapshot(slot_idx, hit.snapshot)
             if self.kv_quant:
                 self._restore_tail(slot_idx, hit.length)
             slot = _Slot(req=req, admitted_tick=self._tick_count,
@@ -768,6 +837,10 @@ class ServeScheduler:
             self._admit_bucketed(slot_idx, req)
             slot = self._slots[slot_idx]
             self.prefix_stats["prefill_tokens"] += length
+            if self._wants_snapshot(slot) and length % pl == 0:
+                # a page-aligned prompt: the freshly written slot state is
+                # the state at the cacheable boundary
+                slot.snapshot = self._snap_slot(slot_idx)
         slot.pages = pages
         self.prefix_stats["pages_held"] += len(pages)
         self.prefix_stats["admitted"] += 1
@@ -783,7 +856,8 @@ class ServeScheduler:
         if self.paged:
             if self._radix is not None:
                 row = self._table[slot_idx]
-                self._radix.insert(slot.req.prompt, lambda bi: int(row[bi]))
+                self._radix.insert(slot.req.prompt, lambda bi: int(row[bi]),
+                                   snapshot=slot.snapshot)
             self._pages.release(slot.pages)
             self._table[slot_idx, :] = TRASH_PAGE
         self._active[slot_idx] = False

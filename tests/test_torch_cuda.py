@@ -10,7 +10,10 @@ bf16 (both widen q and keep ``p`` in f32), with trash-page codes and
 scales and the tail ring's dead rows bitwise invisible.  Both kernels are
 also held at the serving path's geometry (page_len 16, 32 table columns,
 rows up to 512 tokens, so every warp of a block walks several pages), and
-there at D = 128 and R = 8.
+there at D = 128 and R = 8.  K2 is also held at mamba2-780m's projection
+shapes, and the mamba smoke config's serving programs (scheduler ticks
+with SSM snapshots, the one-shot generate) as CUDA graphs against
+``engine.eager()``.
 
 Every test here is marked ``cuda`` and skips on a host without an NVIDIA
 GPU.  The file imports no JAX, so it runs where the card is:
@@ -570,7 +573,7 @@ def _pool_bytes(sched):
         for k, t in sorted(layer.items()):
             if k.endswith("_tail"):
                 t = t[:, :, :-1]
-            elif sched.paged:
+            elif sched.paged and "ssm" not in layer:
                 t = t[:, 1:]
             out.append(t.clone())
     return out
@@ -740,3 +743,145 @@ def test_colliding_page_writes_match_the_host(cuda):
     for _ in range(5):
         for a, e in zip(run(cuda), host):
             assert torch.equal(a, e)
+
+
+# ---------------------------------------------------------------------------
+# mamba2-780m: K2 at its projection shapes, its serving programs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tensor_cores", [None, False, True])
+@pytest.mark.parametrize("layout", ["unpacked", "packed"])
+@pytest.mark.parametrize("m", [4, 8, 128, 256])
+def test_fused_kernel_bit_equal_at_mamba_shapes(cuda, m, layout,
+                                                tensor_cores):
+    """wz/wx (K 1536 -> N 3072) and out_proj (3072 -> 1536): at K = 3072
+    a cluster rank owns 3 of the 24 K tiles.  Output equal to the plain
+    version and the direct-shift oracle."""
+    for k, n in ((1536, 3072), (3072, 1536)):
+        x, w, unpacked, packed = _fused(m, k, n, m + k, torch.bfloat16)
+        planes = packed if layout == "packed" else unpacked
+        a = torch.tensor(0.37, device=cuda)
+        want, q = bm_ops.log2_bitplane_matmul_plain(x, a, planes, 4)
+        y = bm_ops.log2_bitplane_matmul(x, a, planes, 4,
+                                        tensor_cores=tensor_cores)
+        torch.cuda.synchronize()
+        assert torch.equal(y, want)
+        assert torch.equal(y, bitplane_matmul_ref(q.exp, q.sign, w, 4))
+
+
+MAMBA_GRAPH = dict(max_slots=2, max_len=64, buckets=(8, 16), tick_steps=3,
+                   paged=True, page_len=8, prefix_cache=True,
+                   chunked="auto", chunk_len=8)
+
+
+def _mamba_prompts(vocab):
+    """Page-aligned prefix owners (16 tokens bucketed, 24 chunked) and
+    prompts that hit their snapshots."""
+    import numpy as np
+
+    rng = np.random.default_rng(4)
+
+    def tok(n):
+        return rng.integers(0, vocab, size=n).astype(np.int32)
+
+    a, b = tok(16), tok(24)
+    return [a, b, np.concatenate([a, tok(5)]), tok(30),
+            np.concatenate([b, tok(3)]), np.concatenate([a, tok(9)])]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_mamba_graph_tick_bit_equal_to_eager(cuda, quant):
+    """The mamba smoke config's scheduler programs as CUDA graphs against
+    ``engine.eager()`` (bf16, packed planes with stats when quantized):
+    tokens, stats, and after every tick the lengths, page tables, SSM/conv
+    state and pool bytes equal bit for bit; snapshot hits served."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import init_params
+    from repro_torch.models.quantize import quantize_model_params
+    from repro_torch.serving import engine
+
+    cfg = get_smoke("mamba2-780m")
+    params = init_params(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    kw = dict(MAMBA_GRAPH)
+    if quant:
+        params = quantize_model_params(cfg, params, pack=True)
+        kw.update(quant="pallas", with_stats=True)
+    prompts = _mamba_prompts(cfg.vocab_size)
+    with engine.eager():
+        _, elog, eres = _serve_ticks(cfg, params, kw, prompts)
+    sched, glog, gres = _serve_ticks(cfg, params, kw, prompts)
+    assert gres == eres
+    assert len(glog) == len(elog)
+    for t, (g, e) in enumerate(zip(glog, elog)):
+        assert torch.equal(g[0], e[0]), f"lengths, tick {t}"
+        assert np.array_equal(g[1], e[1]), f"table, tick {t}"
+        for a, b in zip(g[2], e[2]):
+            assert torch.equal(a, b), f"pool bytes, tick {t}"
+    assert sched.prefix_cache_stats()["lookup_hits"] >= 1
+    for name, prog in sched.programs().items():
+        for entry in prog.entries():
+            assert entry.graph is not None
+            assert entry.replays == entry.calls >= 1, name
+    tick = sched.programs()["tick"].entries()[0].census
+    assert tick["bitplane_matmul"] == (cfg.n_layers * 3 * 3 if quant else 0)
+    assert tick["paged_attention"] == tick["paged_attention_quant"] == 0
+
+
+def test_mamba_generate_program_bit_equal_to_eager(cuda):
+    """The mamba one-shot program on packed planes with stats: eager, then
+    two graph calls, equal tokens and stats; K2 launches 3 per layer per
+    forward by the capture census."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import init_params
+    from repro_torch.models.quantize import quantize_model_params
+    from repro_torch.serving import engine
+
+    cfg = get_smoke("mamba2-780m")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = quantize_model_params(cfg, init_params(
+        cfg, generator=gen, device=cuda), pack=True)
+    prompt = torch.randint(0, cfg.vocab_size, (3, 9), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    runs = []
+    for mode in ("eager", "graph", "graph"):
+        with engine.eager() if mode == "eager" else torch.no_grad():
+            runs.append(engine.greedy_generate(cfg, params, prompt, 8,
+                                               quant=True, with_stats=True))
+    for toks, st in runs[1:]:
+        assert torch.equal(toks, runs[0][0])
+        for key in st:
+            assert torch.equal(st[key], runs[0][1][key])
+    (entry,) = engine.generate_fn(cfg, params, 8, 0.0, True, None, True,
+                                  cuda).program.entries()
+    assert entry.census["bitplane_matmul"] == cfg.n_layers * 3 * 8
+
+
+def test_capture_survives_a_dead_program_in_a_cycle(cuda):
+    """A program whose graph sits in a dead reference cycle (a discarded
+    scheduler's programs are bound methods of it) must not be destroyed
+    by the cyclic collector while another program captures: a graph
+    destroyed mid-capture invalidates the capture.  The body collects
+    only while its stream captures, which is when the collector would
+    find the cycle if the capture had not collected it first."""
+    import gc
+
+    from repro_torch.serving import engine
+
+    x = torch.arange(4.0, device=cuda)
+    dead = engine.Program(lambda t: (t + 1,), name="dead", device=cuda)
+    dead(x)
+    dead.cycle = dead
+    del dead
+
+    def body(t):
+        if torch.cuda.is_current_stream_capturing():
+            gc.collect()
+        return (t * 2,)
+
+    live = engine.Program(body, name="live", device=cuda)
+    assert torch.equal(live(x)[0], x * 2)
+    assert torch.equal(live(x + 1)[0], (x + 1) * 2)
+    assert live.entries()[0].replays == 2

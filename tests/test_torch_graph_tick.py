@@ -16,7 +16,12 @@ the JAX package on the smoke config at f32:
   reference's, the scheduler sizing the bound from its ``ServeConfig``;
 * with ``eos_id`` the one-shot program, which runs every forward, gives
   the reference ``while_loop``'s tokens and per-step stats (within 1e-6),
-  zero for every forward after all rows are done.
+  zero for every forward after all rows are done;
+* on the mamba2-780m smoke config the same ``compile_stats()`` cases
+  equal the reference's, the programs' addresses hold over SSM snapshots
+  and their restores, every slot's SSM/conv state is in the tick, chunk
+  and mixed programs' ``carry`` (a warm-up advances it), and a run under
+  ``engine.eager()`` equals the program run in tokens and final state.
 """
 
 import jax
@@ -60,6 +65,16 @@ PTR_MODES = {
 
 
 @pytest.fixture(scope="module")
+def mamba_model():
+    jcfg = jax_get_smoke("mamba2_780m").replace(dtype=jnp.float32)
+    cfg = get_smoke("mamba2-780m").replace(dtype=torch.float32)
+    jparams = jax_init_params(jax.random.PRNGKey(0), jcfg)
+    params = params_from_numpy(cfg, jax.tree.map(np.asarray, jparams),
+                               device="cpu")
+    return jcfg, jparams, cfg, params
+
+
+@pytest.fixture(scope="module")
 def model():
     jcfg = jax_get_smoke("smollm_135m").replace(dtype=jnp.float32)
     cfg = get_smoke("smollm-135m").replace(dtype=torch.float32)
@@ -92,6 +107,11 @@ def test_compile_stats_equal_reference(model, case):
     assert stats["tick"] == 1 and stats["prefill"] <= len(kw["buckets"])
     if "chunk" in stats:
         assert stats["chunk"] == 1 and stats["mixed"] <= 1
+
+
+@pytest.mark.parametrize("case", list(STATS_CASES))
+def test_mamba_compile_stats_equal_reference(mamba_model, case):
+    test_compile_stats_equal_reference(mamba_model, case)
 
 
 def _addresses(sched):
@@ -313,3 +333,77 @@ def test_colliding_page_writes_resolve_last_wins():
                            s, 4, page_slots(table, pos, keep, n_pages, pl))
         assert torch.equal(codes, serial_codes)
         assert torch.equal(scale, serial_scale)
+
+
+MAMBA_PAGED = dict(max_slots=2, max_len=64, buckets=(8, 16), tick_steps=3,
+                   paged=True, page_len=8, prefix_cache=True,
+                   chunked="auto", chunk_len=8)
+
+
+def _mamba_trace(vocab):
+    """Two page-aligned prefix owners (one bucketed, one chunked whose last
+    chunk lands on the page boundary), then prompts that hit them, and a
+    prefix-free long prompt."""
+    rng = np.random.default_rng(4)
+
+    def tok(n):
+        return rng.integers(0, vocab, size=n).astype(np.int32)
+
+    a, b = tok(16), tok(24)
+    return [a, b, np.concatenate([a, tok(5)]), tok(30),
+            np.concatenate([b, tok(3)]), np.concatenate([a, tok(9)])]
+
+
+def test_mamba_programs_carry_state_and_keep_addresses(mamba_model):
+    """Every SSM/conv leaf is carried by the tick, chunk and mixed
+    programs; no address a program reads moves over admissions, snapshots,
+    their restores and retirements; the hits are served."""
+    _, _, cfg, params = mamba_model
+    sched = ServeScheduler(cfg, params, ServeConfig(**MAMBA_PAGED),
+                           device="cpu")
+    leaves = [t for c in sched._pool["layers"] for t in c.values()]
+    for name in ("tick", "chunk", "mixed"):
+        carried = {t.data_ptr() for t in sched.programs()[name].carry}
+        assert all(t.data_ptr() in carried for t in leaves), name
+    for p in _mamba_trace(cfg.vocab_size):
+        sched.submit(p, max_new=5)
+    seen = _addresses(sched)
+    while sched.pending:
+        assert sched.step_tick()
+        now = _addresses(sched)
+        for key, ptr in seen.items():
+            assert now[key] == ptr, key
+        seen.update(now)
+    assert all(len(r.tokens) == 5 for r in sched.run())
+    st = sched.prefix_cache_stats()
+    assert st["lookup_hits"] == 3 and st["cached_tokens"] == 16 + 24 + 16
+
+
+def test_mamba_eager_run_equals_program_run(mamba_model):
+    """The same trace through the programs and under ``engine.eager()``:
+    equal tokens, lengths and SSM/conv state after the run, and equal to
+    the reference scheduler's tokens."""
+    jcfg, jparams, cfg, params = mamba_model
+    prompts = _mamba_trace(cfg.vocab_size)
+    runs = []
+    for eager in (False, True):
+        sched = ServeScheduler(cfg, params, ServeConfig(**MAMBA_PAGED),
+                               device="cpu")
+        for p in prompts:
+            sched.submit(p, max_new=5)
+        if eager:
+            with engine.eager():
+                res = sched.run()
+        else:
+            res = sched.run()
+        runs.append(([r.tokens for r in res], sched._pool))
+    (toks, pool), (etoks, epool) = runs
+    assert toks == etoks
+    assert torch.equal(pool["length"], epool["length"])
+    for c, ec in zip(pool["layers"], epool["layers"]):
+        for k in c:
+            assert torch.equal(c[k], ec[k]), k
+    jsched = JaxScheduler(jcfg, jparams, JaxServeConfig(**MAMBA_PAGED))
+    for p in prompts:
+        jsched.submit(p, max_new=5)
+    assert toks == [list(map(int, r.tokens)) for r in jsched.run()]
