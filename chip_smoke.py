@@ -14,8 +14,10 @@ Phases, in order; any failure exits non-zero before the result line:
 3. K2, the LOG2-quantize + plane-skipping bit-plane GEMM in one launch,
    bit-equal to its plain version (``log2_quantize`` of ``x / act_scale``,
    ``unpack_planes``, ``shiftadd_matmul_bitplane``) and, up to 4 bits, to
-   the direct-shift oracle on the card: every main-path (K, N), smollm-135m's
-   and mamba2-780m's (1536, 3072) and (3072, 1536), with M in
+   the direct-shift oracle on the card: every main-path (K, N), smollm-135m's,
+   mamba2-780m's (1536, 3072) and (3072, 1536) and deepseek-moe-16b's
+   (2048, 2048), (2048, 2816) and (2816, 2048) (22 K-tiles over 8 cluster
+   ranks), with M in
    ``PHASE3_M``, unpacked and packed planes, x in f32 and bf16, act_scale
    in ``PHASE3_SCALES``, n_bits 2..5, both of the kernel's bodies (the
    tensor cores up to 4 bits) and the wrapper's own choice; the codes it
@@ -61,7 +63,8 @@ Phases, in order; any failure exits non-zero before the result line:
    smollm-135m's (3, 3, 64) at page_len 16, and the serving path's
    geometry (page_len 16, 32 table columns, lengths 512..0, so that every
    warp of a block walks several pages) at (G, R, D) (3, 3, 64), (3, 3,
-   128) and (1, 8, 64), splits 1..4, f32 and bf16, at the reference's
+   128), (1, 8, 64), deepseek-moe-16b's (16, 1, 128) and
+   jamba-v0.1-52b's (8, 4, 128), splits 1..4, f32 and bf16, at the reference's
    tolerances (f32 ``rtol=2e-5, atol=2e-6``; bf16 ``atol=2e-2``);
    trash-page poison of +-1e4 bitwise invisible on live rows, also at the
    serving geometry, length-0 rows finite; ``gather_traffic_counts`` on
@@ -148,9 +151,32 @@ Phases, in order; any failure exits non-zero before the result line:
    ``chunk_len == page_len == 16``, the first served before the other
    two are submitted): 2 hits through SSM snapshots, tokens equal to the
    same requests served without the prefix cache.
+11. full-width deepseek-moe-16b (28 layers ``attn_moe``, d 2048, 16 MHA
+   heads x 128, 64 routed experts top-6 with ffe 1408, 2 shared experts,
+   vocab 102400, untied; random weights from seed 0) in bf16.  One-shot
+   as phase 10, float and quantized on packed planes with stats: K2
+   launches 196 x 32 (28 layers x wq, wk, wv, wo and the shared experts'
+   gate, up, down); one decode step as its own program; the bytes a
+   decode step moves, split into routed experts (all 64 read every
+   forward by the reference's local formulation), planes, lm head, the
+   rest and the KV, beside the measured step; on one decode step's real
+   activations every K2 call's codes and output held against K1's and
+   K2's plain versions, its time on both plane layouts beside its bound,
+   and the routed-expert products of the step beside their byte bound.
+   Then phase 7's trace and ``ServeConfig`` with K3, packed planes with
+   stats, as graphs and under ``engine.eager()``, held equal; tok/s, ms
+   per decode step (host, device), nodes per step, ``compile_stats()``,
+   the routed slots each tick dropped over expert capacity (eager run),
+   and K3 on the tick that touches most pages at (16, 1, 128) as phase 7
+   times it.  Then jamba-v0.1-52b at published width cut to one 8-layer
+   period (4 ``mamba_moe`` layers of 16 experts top-2, ffe 14336):
+   one-shot float and packed, graph against eager, and one decode step's
+   37 K2 calls held against the plain versions.  Last, the deepseek-moe,
+   jamba and phi3.5-moe smoke configs in f32 on the card against the
+   plain path on the host (as phase 4 ends).
 
-Prints a ``serving:`` line (graph and eager tok/s of phases 4, 7, 9 and
-10), a ``kernels:`` line, the JSON kernel table and, last, the result
+Prints a ``serving:`` line (graph and eager tok/s of phases 4, 7, 9, 10
+and 11), a ``kernels:`` line, the JSON kernel table and, last, the result
 line ``{"ok": true, "device": {...}}``.  It imports nothing of JAX and
 nothing of the JAX package.
 """
@@ -175,7 +201,8 @@ BF16_FLOPS_PER_S = 989e12           # dense bf16 tensor cores
 PHASE3_M = [1, 4, 8, 16, 17, 63, 64, 128, 256]
 PHASE3_SCALES = [1.0, 0.37, 2.0 ** -3]
 MAIN_KN = [(576, 576), (576, 192), (576, 1536), (1536, 576),
-           (1536, 3072), (3072, 1536)]      # smollm-135m, then mamba2-780m
+           (1536, 3072), (3072, 1536),      # smollm-135m, mamba2-780m
+           (2048, 2048), (2048, 2816), (2816, 2048)]    # deepseek-moe-16b
 BATCH, PROMPT, NEW = 4, 64, 32
 PROJ = ["wq", "wk", "wv", "wo", "gate", "up", "down"]
 MAMBA_PROJ = ["wz", "wx", "out_proj"]
@@ -190,9 +217,10 @@ KV_BITS = 4
 F32_LAYERS = 4                      # depth of phases 7 and 9's f32 runs
 # phases 6 and 8 at the serving path's geometry (page_len 16, 32 table
 # columns): rows long enough that every warp of a block walks several
-# pages, at smollm-135m's (G, R, D) and at D = 128 and R = 8
+# pages, at smollm-135m's (G, R, D), at D = 128 and R = 8, and at
+# deepseek-moe-16b's and jamba-v0.1-52b's
 LONG_LENGTHS = [512, 300, 64, 33, 17, 16, 1, 0]
-LONG_GEOS = [(3, 3, 64), (3, 3, 128), (1, 8, 64)]
+LONG_GEOS = [(3, 3, 64), (3, 3, 128), (1, 8, 64), (16, 1, 128), (8, 4, 128)]
 
 
 def fail(msg: str) -> None:
@@ -288,14 +316,14 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.configs import get_config
     from repro_torch.core.logquant import LogQuantized, log2_quantize
     from repro_torch.core.shiftadd import QuantCtx, shiftadd_matmul_bitplane
     from repro_torch.kernels import _build
     from repro_torch.kernels.bitplane_matmul import ops as bm_ops
     from repro_torch.kernels.log2quant import ops as l2_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
-    from repro_torch.models.model import forward, init_caches, init_params
+    from repro_torch.models.model import init_caches, init_params
     from repro_torch.models.quantize import quantize_model_params
     from repro_torch.serving import engine
 
@@ -484,28 +512,7 @@ def main() -> None:
           f"projections' real activations")
 
     # the smoke config in f32: kernels on the card vs plain path on host
-    scfg = get_smoke("smollm-135m").replace(dtype=torch.float32)
-    sp_cpu = init_params(scfg, generator=torch.Generator().manual_seed(5),
-                         device="cpu")
-    sq_cpu = quantize_model_params(scfg, sp_cpu)
-    sq_gpu = {"embed": sq_cpu["embed"].to(dev),
-              "final_norm": sq_cpu["final_norm"].to(dev),
-              "blocks": tuple(_to(torch, b, dev) for b in sq_cpu["blocks"])}
-    sprompt = torch.randint(0, scfg.vocab_size, (2, 8),
-                            generator=torch.Generator().manual_seed(6),
-                            dtype=torch.int32)
-    for quant in (False, True):
-        a = engine.greedy_generate(scfg, sq_cpu, sprompt, 8, quant=quant,
-                                   device="cpu")
-        b = engine.greedy_generate(scfg, sq_gpu, sprompt, 8, quant=quant)
-        check(torch.equal(a, b.cpu()), f"smoke tokens (quant={quant}) on the "
-              f"card differ from the host's plain path")
-        la, _ = forward(scfg, sq_cpu, tokens=sprompt, quant=quant)
-        lb, _ = forward(scfg, sq_gpu, tokens=sprompt.to(dev), quant=quant)
-        err = float((la - lb.cpu()).abs().max())
-        check(err <= 1e-4, f"smoke logits (quant={quant}) differ by {err}")
-        print(f"  smoke f32 (quant={quant}): tokens equal the host's plain "
-              f"path, logits max |diff| {err:.2e}")
+    smoke_on_card(torch, dev, "smollm-135m")
 
     # -- phase 5: kernel times at the decode, chunk and prefill shapes -----
     t = phase5(torch, dev, g, card, cfg, params, ctx.capture, step_calls,
@@ -533,12 +540,19 @@ def main() -> None:
     # -- phase 10: full-width mamba2-780m, one-shot and scheduler ----------
     m10 = phase10(torch, dev, card, mamba, l2_ops, bm_ops, pa_ops)
     print(f"  (phase 10 done at {time.perf_counter() - t_main:.0f} s)")
+    del mamba
+    gc_cuda(torch)
+
+    # -- phase 11: full-width deepseek-moe-16b, one jamba period ----------
+    m11 = phase11(torch, dev, card, l2_ops, bm_ops, pa_ops)
+    print(f"  (phase 11 done at {time.perf_counter() - t_main:.0f} s)")
     serving = {"phase4": {tag: {
         "graph_tok_s": BATCH * NEW / r["t_graph"],
         "eager_tok_s": BATCH * NEW / r["t_eager"],
         "capture_ms": r["capture_ms"]} for tag, r in gen_runs.items()},
         "phase7": k3["serve"], "phase9": k4["serve"],
-        "phase10": m10["serve"]}
+        "phase10": m10["serve"], "phase11": m11["serve"],
+        "phase11_jamba": m11["jamba"]}
     print(f"serving ({card}): {json.dumps(serving)}")
 
     table = []
@@ -556,6 +570,10 @@ def main() -> None:
             # the mamba path: launches of phase 10's quantized one-shot run
             # (census x replays), times at its decode step (phase 5)
             entry["mamba2_780m"] = {"launches": m10["launches"], **t_mamba}
+            # the MoE path: launches of phase 11's quantized one-shot run,
+            # times at its decode step
+            entry["deepseek_moe_16b"] = {"launches": m11["k2_launches"],
+                                         **m11["k2"]}
         table.append(entry)
     table.append({
         "name": "paged_attention", "route": "cuda",
@@ -565,7 +583,8 @@ def main() -> None:
         "launches": k3["launches"], "max_abs_err": k3_err, "ms": k3["ms"],
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
-        "scope": k3["scope"], "eager_ms": k3["eager_ms"]})
+        "scope": k3["scope"], "eager_ms": k3["eager_ms"],
+        "deepseek_moe_16b": {"launches": m11["k3_launches"], **m11["k3"]}})
     table.append({
         "name": "paged_attention_quant", "route": "cuda",
         "source": "src/repro_torch/kernels/paged_attention/csrc/"
@@ -583,6 +602,39 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
+
+
+def smoke_on_card(torch, dev, name: str) -> None:
+    """The smoke config of ``name`` in f32 (weights from seed 5, quantized
+    on unpacked planes): ``greedy_generate`` float and quantized on the
+    card equal to the plain path on the host in tokens, ``forward``
+    logits within 1e-4."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import forward, init_params
+    from repro_torch.models.quantize import quantize_model_params
+    from repro_torch.serving import engine
+
+    scfg = get_smoke(name).replace(dtype=torch.float32)
+    sp_cpu = init_params(scfg, generator=torch.Generator().manual_seed(5),
+                         device="cpu")
+    sq_cpu = quantize_model_params(scfg, sp_cpu)
+    sq_gpu = _to(torch, sq_cpu, dev)
+    sprompt = torch.randint(0, scfg.vocab_size, (2, 8),
+                            generator=torch.Generator().manual_seed(6),
+                            dtype=torch.int32)
+    for quant in (False, True):
+        a = engine.greedy_generate(scfg, sq_cpu, sprompt, 8, quant=quant,
+                                   device="cpu")
+        b = engine.greedy_generate(scfg, sq_gpu, sprompt, 8, quant=quant)
+        check(torch.equal(a, b.cpu()), f"{scfg.name} tokens (quant={quant}) "
+              f"on the card differ from the host's plain path")
+        la, _ = forward(scfg, sq_cpu, tokens=sprompt, quant=quant)
+        lb, _ = forward(scfg, sq_gpu, tokens=sprompt.to(dev), quant=quant)
+        err = float((la - lb.cpu()).abs().max())
+        check(err <= 1e-4, f"{scfg.name} logits (quant={quant}) differ by "
+              f"{err}")
+        print(f"  {scfg.name} f32 (quant={quant}): tokens equal the host's "
+              f"plain path, logits max |diff| {err:.2e}")
 
 
 class _Calls(list):
@@ -1243,8 +1295,10 @@ def serve_trace(vocab: int):
 
 
 def serve(torch, dev, cfg, trace, *, quant, kernel, stats, counters,
-          on_tick=None, kv_quant=False, pack=False, profile=None):
-    """Serve the trace through ServeScheduler; returns (results, sched,
+          on_tick=None, kv_quant=False, pack=False, profile=None,
+          params=None):
+    """Serve the trace through ServeScheduler (on ``params``, or random
+    weights from seed 0, quantized when ``quant``); returns (results, sched,
     forwards, wall seconds, run).  ``counters`` are zeroed just before the
     run; ``forwards`` counts the decode steps, chunk forwards and bucketed
     prefills the scheduler's programs ran; ``run`` holds each tick's page
@@ -1256,10 +1310,11 @@ def serve(torch, dev, cfg, trace, *, quant, kernel, stats, counters,
     from repro_torch.models.quantize import quantize_model_params
     from repro_torch.serving import ServeConfig, ServeScheduler
 
-    params = init_params(cfg, generator=torch.Generator(
-        device=dev).manual_seed(0), device=dev)
-    if quant:
-        params = quantize_model_params(cfg, params, pack=pack)
+    if params is None:
+        params = init_params(cfg, generator=torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+        if quant:
+            params = quantize_model_params(cfg, params, pack=pack)
     sc = ServeConfig(**SERVE, attn_kernel="pallas" if kernel else "off",
                      quant="pallas" if quant else False, with_stats=stats,
                      kv_quant=kv_quant, kv_bits=KV_BITS)
@@ -1444,9 +1499,104 @@ def tok_s(label, res, wall, run, sched) -> dict:
     return out
 
 
+def most_pages(torch, dev):
+    """``(best, on_tick)``: ``on_tick(sched)`` keeps in ``best`` the page
+    table, lengths (+1, the next decode row) and K/V pool of the tick that
+    touches most pages."""
+    best = {"touched": -1}
+
+    def on_tick(sched):
+        lens = sched._pool["length"].cpu() + 1
+        touched = int(((lens + SERVE["page_len"] - 1)
+                       // SERVE["page_len"]).sum())
+        if touched > best["touched"]:
+            best.update(touched=touched, lens=lens.to(dev),
+                        table=torch.from_numpy(sched._table.copy()).to(dev),
+                        k=sched._pool["layers"][0]["k"].clone(),
+                        v=sched._pool["layers"][0]["v"].clone())
+    return best, on_tick
+
+
+def k3_tick(torch, dev, card, cfg, pa_ops, best) -> dict:
+    """K3 on the tick that touched most pages (``most_pages``): real pool,
+    table and lengths, random queries; every layer held against its plain
+    version, then one decode step's launches timed by CUDA-graph replay
+    beside the bytes bound, the plain version and the library context."""
+    from repro_torch.models.attention import _paged_gather
+
+    lens, table = best["lens"].to(torch.int32), best["table"]
+    b, nb = table.shape
+    g, d = cfg.n_kv_heads, cfg.head_dim
+    r = cfg.n_heads // g
+    splits = SERVE["attn_splits"]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    qs = [torch.randn((b, g, r, d), generator=gen, device=dev,
+                      dtype=cfg.dtype) for _ in range(cfg.n_layers)]
+    err = 0.0
+    for layer in range(cfg.n_layers):
+        err = max(err, k3_against_plain(
+            torch, pa_ops, qs[layer], best["k"][layer], best["v"][layer],
+            table, lens, splits, f"full-width tick, layer {layer}"))
+    print(f"  tick with {best['touched']} touched pages (lengths "
+          f"{lens.tolist()}): K3 within bf16 tolerance of its plain version "
+          f"on all {cfg.n_layers} layers (max |diff| {err:.3e})")
+
+    def k3_step():
+        for layer in range(cfg.n_layers):
+            pa_ops.paged_attention(qs[layer], best["k"][layer],
+                                   best["v"][layer], table, lens, splits)
+
+    def plain_step():
+        for layer in range(cfg.n_layers):
+            pa_ops.paged_attention_plain(qs[layer], best["k"][layer],
+                                         best["v"][layer], table, lens,
+                                         splits)
+
+    valid = (torch.arange(nb * SERVE["page_len"], device=dev)[None]
+             < lens[:, None])[:, None, None, :]          # (B, 1, 1, S)
+
+    def library_step():
+        for layer in range(cfg.n_layers):
+            kg = _paged_gather(best["k"][layer], table).transpose(1, 2)
+            vg = _paged_gather(best["v"][layer], table).transpose(1, 2)
+            torch.nn.functional.scaled_dot_product_attention(
+                qs[layer].reshape(b, g * r, 1, d), kg, vg, attn_mask=valid,
+                enable_gqa=True)
+
+    ms, plain_ms = graph_ms(torch, k3_step), graph_ms(torch, plain_step)
+    lib_ms = graph_ms(torch, library_step)
+    eager = eager_ms(torch, k3_step)
+    esz = torch.tensor([], dtype=cfg.dtype).element_size()
+    touched = int(((lens.cpu() + SERVE["page_len"] - 1)
+                   // SERVE["page_len"]).sum())
+    kv_bytes = touched * SERVE["page_len"] * g * d * 2 * esz
+    io_bytes = (b * g * r * d * esz + b * g * splits * r * (d + 2) * 4
+                + b * nb * 4 + b * 4)
+    step_bytes = cfg.n_layers * (kv_bytes + io_bytes)
+    step_ops = cfg.n_layers * 4 * g * r * d * int(lens.sum())
+    t_bytes = step_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = step_ops / INT32_OPS_PER_S * 1e3
+    print(f"  K3 per decode step ({cfg.n_layers} launches, B={b}, "
+          f"splits {splits}), CUDA-graph replay on {card}: {ms:.4f} ms "
+          f"({ms / cfg.n_layers * 1e3:.2f} us per launch); bound "
+          f"{max(t_bytes, t_ops):.5f} ms ({step_bytes} bytes: {touched} "
+          f"touched pages x {SERVE['page_len']} tokens x {g * d * 2 * esz} "
+          f"B per layer + q + partials); plain {plain_ms:.4f} ms; issued eagerly "
+          f"{eager:.4f} ms; context: _paged_gather + "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms (the port never "
+          f"calls it)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=lib_ms, eager_ms=eager, max_abs_err=err,
+                scope=f"one decode step: {cfg.n_layers} launches, B={b}, "
+                      f"G={g}, R={r}, D={d}, {touched} touched pages, "
+                      f"splits {splits}")
+
+
+
+
 def phase7(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
     from repro_torch.configs import get_config
-    from repro_torch.models.attention import _paged_gather
     from repro_torch.serving import engine
 
     cfg = get_config("smollm-135m")
@@ -1512,16 +1662,7 @@ def phase7(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
 
     # bf16 K3 float, then the main path: K3 quantized with stats; each as
     # CUDA-graph programs, then the same bodies under engine.eager()
-    best = {"touched": -1}
-
-    def on_tick(sched):
-        lens = sched._pool["length"].cpu() + 1
-        touched = int(((lens + 15) // 16).sum())
-        if touched > best["touched"]:
-            best.update(touched=touched, lens=lens.to(dev),
-                        table=torch.from_numpy(sched._table.copy()).to(dev),
-                        k=sched._pool["layers"][0]["k"].clone(),
-                        v=sched._pool["layers"][0]["v"].clone())
+    best, on_tick = most_pages(torch, dev)
 
     out = {"serve": {}}
     per_fwd = cfg.n_layers * len(PROJ)
@@ -1607,73 +1748,7 @@ def phase7(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
                       f"{[(n, round(ms, 4), c) for n, ms, c in pr['top']]}")
                 out["serve"][f"{tag}/{mode}"]["busy_share"] = pr["share"]
 
-    # K3 on the tick that touched most pages: real pool, table, lengths
-    lens, table = best["lens"].to(torch.int32), best["table"]
-    b, nb = table.shape
-    g, d = cfg.n_kv_heads, cfg.head_dim
-    r = cfg.n_heads // g
-    splits = SERVE["attn_splits"]
-    gen = torch.Generator(device=dev).manual_seed(7)
-    qs = [torch.randn((b, g, r, d), generator=gen, device=dev,
-                      dtype=cfg.dtype) for _ in range(cfg.n_layers)]
-    err = 0.0
-    for layer in range(cfg.n_layers):
-        err = max(err, k3_against_plain(
-            torch, pa_ops, qs[layer], best["k"][layer], best["v"][layer],
-            table, lens, splits, f"full-width tick, layer {layer}"))
-    print(f"  tick with {best['touched']} touched pages (lengths "
-          f"{lens.tolist()}): K3 within bf16 tolerance of its plain version "
-          f"on all {cfg.n_layers} layers (max |diff| {err:.3e})")
-
-    def k3_step():
-        for layer in range(cfg.n_layers):
-            pa_ops.paged_attention(qs[layer], best["k"][layer],
-                                   best["v"][layer], table, lens, splits)
-
-    def plain_step():
-        for layer in range(cfg.n_layers):
-            pa_ops.paged_attention_plain(qs[layer], best["k"][layer],
-                                         best["v"][layer], table, lens,
-                                         splits)
-
-    valid = (torch.arange(nb * SERVE["page_len"], device=dev)[None]
-             < lens[:, None])[:, None, None, :]          # (B, 1, 1, S)
-
-    def library_step():
-        for layer in range(cfg.n_layers):
-            kg = _paged_gather(best["k"][layer], table).transpose(1, 2)
-            vg = _paged_gather(best["v"][layer], table).transpose(1, 2)
-            torch.nn.functional.scaled_dot_product_attention(
-                qs[layer].reshape(b, g * r, 1, d), kg, vg, attn_mask=valid,
-                enable_gqa=True)
-
-    ms, plain_ms = graph_ms(torch, k3_step), graph_ms(torch, plain_step)
-    lib_ms = graph_ms(torch, library_step)
-    eager = eager_ms(torch, k3_step)
-    esz = torch.tensor([], dtype=cfg.dtype).element_size()
-    touched = int(((lens.cpu() + SERVE["page_len"] - 1)
-                   // SERVE["page_len"]).sum())
-    kv_bytes = touched * SERVE["page_len"] * g * d * 2 * esz
-    io_bytes = (b * g * r * d * esz + b * g * splits * r * (d + 2) * 4
-                + b * nb * 4 + b * 4)
-    step_bytes = cfg.n_layers * (kv_bytes + io_bytes)
-    step_ops = cfg.n_layers * 4 * g * r * d * int(lens.sum())
-    t_bytes = step_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = step_ops / INT32_OPS_PER_S * 1e3
-    print(f"  K3 per decode step ({cfg.n_layers} launches, B={b}, "
-          f"splits {splits}), CUDA-graph replay on {card}: {ms:.4f} ms "
-          f"({ms / cfg.n_layers * 1e3:.2f} us per launch); bound "
-          f"{max(t_bytes, t_ops):.5f} ms ({step_bytes} bytes: {touched} "
-          f"touched pages x {SERVE['page_len']} tokens x {g * d * 2 * esz} "
-          f"B per layer + q + partials); plain {plain_ms:.4f} ms; issued eagerly "
-          f"{eager:.4f} ms; context: _paged_gather + "
-          f"scaled_dot_product_attention {lib_ms:.4f} ms (the port never "
-          f"calls it)")
-    out.update(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
-               library_ms=lib_ms, eager_ms=eager, max_abs_err=err,
-               scope=f"one decode step: {cfg.n_layers} launches, B={b}, "
-                     f"{touched} touched pages, splits {splits}")
+    out.update(k3_tick(torch, dev, card, cfg, pa_ops, best))
     return out
 
 
@@ -2309,24 +2384,20 @@ def mamba_step_bytes(cfg, batch: int, tile_fraction: float) -> dict:
     return out
 
 
-def phase10(torch, dev, card, mb, l2_ops, bm_ops, pa_ops) -> dict:
-    from repro_torch.models.model import init_caches
-    from repro_torch.serving import ServeConfig, ServeScheduler, engine
+def one_shot(torch, dev, cfg, prompt, variants, kernels, per_fwd,
+             label) -> dict:
+    """Each ``(tag, params, quant, stats)`` of ``variants`` through
+    ``greedy_generate`` (BATCH x PROMPT, NEW tokens) as one program: its
+    first call captures, the second replays (launches = census x replays;
+    no wrapper counts a launch), then the same body under
+    ``engine.eager()``.  Held equal in tokens and stats; K2 launches
+    ``per_fwd`` x NEW when quantized (by census x replays and by the
+    wrappers' counts), K1, K3 and K4 none.  Prints and returns each run."""
+    from repro_torch.serving import engine
 
-    t_phase = time.perf_counter()
-    cfg, prompt = mb["cfg"], mb["prompt"]
-    kernels = (l2_ops.log2quant, bm_ops.bitplane_matmul,
-               pa_ops.paged_attention, pa_ops.paged_attention_quant)
-    per_fwd = cfg.n_layers * len(MAMBA_PROJ)
-    print(f"phase 10: {cfg.name} full width, bf16, one-shot batch {BATCH}, "
-          f"prompt {PROMPT}, {NEW} new tokens; then phase 7's trace through "
-          f"ServeScheduler; on {card}")
-
-    # -- one-shot: float, quantized with stats, packed planes -------------
     runs = {}
-    for tag, p, quant, stats in (("float", mb["params"], False, False),
-                                 ("quant+stats", mb["qparams"], True, True),
-                                 ("packed", mb["pparams"], True, False)):
+    new = BATCH * NEW
+    for tag, p, quant, stats in variants:
         def call(p=p, quant=quant, stats=stats):
             return engine.greedy_generate(cfg, p, prompt, NEW, quant=quant,
                                           with_stats=stats)
@@ -2340,7 +2411,7 @@ def phase10(torch, dev, card, mb, l2_ops, bm_ops, pa_ops) -> dict:
         replayed = {k: n * (entry.replays - before)
                     for k, n in entry.census.items()}
         check(all(k.launches == 0 for k in kernels),
-              f"mamba {tag}: a kernel ran outside the graph replay")
+              f"{label} {tag}: a kernel ran outside the graph replay")
         with engine.eager():
             eout, t_eager = sync_time(torch, call)
         counted = {k.__name__: k.launches for k in kernels}
@@ -2349,20 +2420,84 @@ def phase10(torch, dev, card, mb, l2_ops, bm_ops, pa_ops) -> dict:
             check(got["bitplane_matmul"] == want and got["log2quant"] == 0
                   and got["paged_attention"] == 0
                   and got["paged_attention_quant"] == 0,
-                  f"mamba {tag} {how}: launches {got}, expected K2 {want} "
+                  f"{label} {tag} {how}: launches {got}, expected K2 {want} "
                   f"and no other kernel")
         toks, st = out if stats else (out, None)
         etoks, est = eout if stats else (eout, None)
         check(torch.equal(toks, etoks) and (not stats or all(
             torch.equal(st[k], est[k]) for k in st)),
-            f"mamba {tag}: graph tokens or stats differ from eager's")
+            f"{label} {tag}: graph tokens or stats differ from eager's")
         check(toks.shape == (BATCH, NEW) and bool((toks >= 0).all())
               and bool((toks < cfg.vocab_size).all()),
-              f"mamba {tag}: bad tokens")
-        runs[tag] = dict(toks=toks, stats=st, t_cap=t_cap, t_graph=t_graph,
-                         t_eager=t_eager, replayed=replayed,
-                         capture_ms=entry.capture_ms,
-                         nodes=engine.graph_nodes(entry))
+              f"{label} {tag}: bad tokens")
+        runs[tag] = r = dict(toks=toks, stats=st, t_cap=t_cap,
+                             t_graph=t_graph, t_eager=t_eager,
+                             replayed=replayed, capture_ms=entry.capture_ms,
+                             nodes=engine.graph_nodes(entry))
+        nodes = r["nodes"]
+        print(f"  one-shot {tag}: graph replay {t_graph:.4f} s = "
+              f"{new / t_graph:.1f} tok/s; engine.eager() {t_eager:.4f} s = "
+              f"{new / t_eager:.1f} tok/s; first call {t_cap:.3f} s "
+              f"(capture {entry.capture_ms:.1f} ms); graph kernel nodes "
+              + (f"{nodes[0]} of {nodes[1]}" if nodes else "not available")
+              + f"; launches replayed {replayed}; tokens and stats equal to "
+              f"engine.eager()'s")
+    return runs
+
+
+def step_programs(torch, dev, cfg, prompt, variants, per_fwd) -> dict:
+    """One decode step (B = BATCH, after a PROMPT prefill) of each
+    ``(tag, params, quant)`` as its own program: its graph's kernel nodes
+    and census, the device ms of one replay, the ms issued eagerly."""
+    from repro_torch.models.model import init_caches
+    from repro_torch.serving import engine
+
+    steps = {}
+    for tag, p, quant in variants:
+        caches = init_caches(cfg, BATCH, PROMPT + NEW, device=dev)
+        logits, caches = engine.make_prefill_step(cfg, quant)(
+            p, {"tokens": prompt}, caches)
+        step = engine.make_serve_step(cfg, quant)
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        prog = engine.Program(
+            lambda t, p=p, caches=caches, step=step: (step(p, caches, t)[0],),
+            name=f"step_{tag}", device=dev,
+            carry=[t for c in caches["layers"] for t in c.values()])
+        prog(tok)
+        (entry,) = prog.entries()
+        check(entry.census["bitplane_matmul"] == (per_fwd if quant else 0),
+              f"{cfg.name} step {tag}: census {entry.census}")
+        r_ms = replay_ms(torch, entry, reps=10)
+        with engine.eager():
+            e_ms = eager_ms(torch, lambda: prog(tok))
+        nodes = engine.graph_nodes(entry)
+        steps[tag] = {"replay_ms": r_ms, "eager_ms": e_ms, "nodes": nodes}
+        print(f"  one decode step ({tag}, B={BATCH}) as one graph: "
+              f"{r_ms:.4f} ms device time replayed, {e_ms:.4f} ms issued "
+              f"eagerly; graph kernel nodes "
+              + (f"{nodes[0]} of {nodes[1]} ({nodes[0] / cfg.n_layers:.1f} "
+                 f"per layer)" if nodes else "not available"))
+        del prog, entry, caches
+    return steps
+
+
+def phase10(torch, dev, card, mb, l2_ops, bm_ops, pa_ops) -> dict:
+    from repro_torch.serving import ServeConfig, ServeScheduler, engine
+
+    t_phase = time.perf_counter()
+    cfg, prompt = mb["cfg"], mb["prompt"]
+    kernels = (l2_ops.log2quant, bm_ops.bitplane_matmul,
+               pa_ops.paged_attention, pa_ops.paged_attention_quant)
+    per_fwd = cfg.n_layers * len(MAMBA_PROJ)
+    print(f"phase 10: {cfg.name} full width, bf16, one-shot batch {BATCH}, "
+          f"prompt {PROMPT}, {NEW} new tokens; then phase 7's trace through "
+          f"ServeScheduler; on {card}")
+
+    # -- one-shot: float, quantized with stats, packed planes -------------
+    runs = one_shot(torch, dev, cfg, prompt, (
+        ("float", mb["params"], False, False),
+        ("quant+stats", mb["qparams"], True, True),
+        ("packed", mb["pparams"], True, False)), kernels, per_fwd, "mamba")
     check(torch.equal(runs["packed"]["toks"], runs["quant+stats"]["toks"]),
           "mamba: packed-plane tokens differ from unpacked")
     tile = runs["quant+stats"]["stats"]["plane_traffic_fraction"].cpu()
@@ -2371,16 +2506,6 @@ def phase10(torch, dev, card, mb, l2_ops, bm_ops, pa_ops) -> dict:
                and (elem[:-1] > 0).all() and (elem <= tile + 1e-6).all()
                and tile[-1] == 0), f"mamba: bad traffic stats {tile} {elem}")
     new = BATCH * NEW
-    for tag, r in runs.items():
-        nodes = r["nodes"]
-        print(f"  one-shot {tag}: graph replay {r['t_graph']:.4f} s = "
-              f"{new / r['t_graph']:.1f} tok/s; engine.eager() "
-              f"{r['t_eager']:.4f} s = {new / r['t_eager']:.1f} tok/s; first "
-              f"call {r['t_cap']:.3f} s (capture {r['capture_ms']:.1f} ms); "
-              f"graph kernel nodes "
-              + (f"{nodes[0]} of {nodes[1]}" if nodes else "not available")
-              + f"; launches replayed {r['replayed']}; tokens and stats "
-              f"equal to engine.eager()'s")
     print(f"  K2 = {cfg.n_layers} layers x {len(MAMBA_PROJ)} projections x "
           f"{NEW} forwards = {per_fwd * NEW} launches per quantized run, by "
           f"census x replays and by the wrappers in the eager run; packed "
@@ -2389,33 +2514,9 @@ def phase10(torch, dev, card, mb, l2_ops, bm_ops, pa_ops) -> dict:
           f"{float(elem[:-1].mean()):.6f}")
 
     # -- one decode step as its own program: nodes, device and eager ms ---
-    steps = {}
-    for tag, p, quant in (("float", mb["params"], False),
-                          ("quant", mb["qparams"], True),
-                          ("packed", mb["pparams"], True)):
-        caches = init_caches(cfg, BATCH, PROMPT + NEW, device=dev)
-        logits, caches = engine.make_prefill_step(cfg, quant)(
-            p, {"tokens": prompt}, caches)
-        step = engine.make_serve_step(cfg, quant)
-        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
-        prog = engine.Program(
-            lambda t, p=p, caches=caches, step=step: (step(p, caches, t)[0],),
-            name=f"mamba_step_{tag}", device=dev,
-            carry=[t for c in caches["layers"] for t in c.values()])
-        prog(tok)
-        (entry,) = prog.entries()
-        check(entry.census["bitplane_matmul"] == (per_fwd if quant else 0),
-              f"mamba step {tag}: census {entry.census}")
-        r_ms = replay_ms(torch, entry, reps=10)
-        with engine.eager():
-            e_ms = eager_ms(torch, lambda: prog(tok))
-        nodes = engine.graph_nodes(entry)
-        steps[tag] = {"replay_ms": r_ms, "eager_ms": e_ms, "nodes": nodes}
-        print(f"  one decode step ({tag}, B={BATCH}) as one graph: "
-              f"{steps[tag]['replay_ms']:.4f} ms device time replayed, "
-              f"{e_ms:.4f} ms issued eagerly; graph kernel nodes "
-              + (f"{nodes[0]} of {nodes[1]} ({nodes[0] / cfg.n_layers:.1f} "
-                 f"per layer)" if nodes else "not available"))
+    steps = step_programs(torch, dev, cfg, prompt, (
+        ("float", mb["params"], False), ("quant", mb["qparams"], True),
+        ("packed", mb["pparams"], True)), per_fwd)
 
     sb = mamba_step_bytes(cfg, BATCH, float(tile[:-1].mean()))
     print(f"  bytes per decode step at batch {BATCH} (from the model's "
@@ -2527,7 +2628,8 @@ def phase10(torch, dev, card, mb, l2_ops, bm_ops, pa_ops) -> dict:
             sched.submit(p, max_new=SERVE_NEW)
         res = sched.run()
         check(len(res) == 3 and all(len(r.tokens) == SERVE_NEW for r in res),
-              f"prefix-hit run: {[(r.finish_reason, len(r.tokens)) for r in res]}")
+              f"prefix-hit run: "
+              f"{[(r.finish_reason, len(r.tokens)) for r in res]}")
         hit_toks[cache] = [r.tokens for r in res]
         if cache:
             st = sched.prefix_cache_stats()
@@ -2545,13 +2647,422 @@ def phase10(torch, dev, card, mb, l2_ops, bm_ops, pa_ops) -> dict:
             "launches": runs["quant+stats"]["replayed"]["bitplane_matmul"]}
 
 
+def quant_names(cfg) -> list:
+    """The quantized projections of one forward, in call order: attention
+    ``wq wk wv wo`` or mamba ``wz wx out_proj``, then a dense MLP's or the
+    shared experts' ``gate up down``."""
+    names = []
+    for _ in range(cfg.repeats):
+        for kind in cfg.pattern:
+            attn = kind.split("_")[0] == "attn"
+            names += PROJ[:4] if attn else MAMBA_PROJ
+            if kind.endswith("_moe"):
+                if cfg.n_shared_experts:
+                    names += [f"shared {p}" for p in PROJ[4:]]
+            elif attn or cfg.d_ff:
+                names += PROJ[4:]
+    return names
+
+
+def moe_decode_k2(torch, dev, cfg, pparams, prompt, bm_ops, label) -> dict:
+    """One quantized prefill of ``prompt`` and one decode step on packed
+    planes; every K2 call of the step recorded with its real activations,
+    its codes held against K1's plain version and its output against K2's
+    (on the planes unpacked).  Returns the step's calls on unpacked planes
+    (``k2_decode_step``'s input) and the capture."""
+    from repro_torch.core.logquant import LogQuantized, log2_quantize
+    from repro_torch.core.shiftadd import QuantCtx, shiftadd_matmul_bitplane
+    from repro_torch.models.model import init_caches
+    from repro_torch.serving import engine
+
+    names = quant_names(cfg)
+    caches = init_caches(cfg, BATCH, PROMPT + 1, device=dev)
+    logits, caches = engine.make_prefill_step(cfg, True)(
+        pparams, {"tokens": prompt}, caches)
+    ctx = QuantCtx(capture=[])
+    calls = recorded(bm_ops, lambda: engine.make_serve_step(cfg, ctx)(
+        pparams, caches, torch.argmax(logits, -1).to(torch.int32)[:, None]))
+    step_logits, _ = calls.result
+    check(len(calls) == len(ctx.capture) == len(names),
+          f"{label}: {len(calls)} K2 calls in a decode step, expected "
+          f"{len(names)}")
+    check(bool(torch.isfinite(logits.float()).all()
+               and torch.isfinite(step_logits.float()).all()),
+          f"{label}: non-finite logits")
+    for i, (xs, exp, sign, planes, y) in enumerate(ctx.capture):
+        what = f"{label} call {i} ({names[i]})"
+        ref = log2_quantize(xs)
+        check(torch.equal(exp, ref.exp) and torch.equal(sign, ref.sign),
+              f"K2's codes differ from K1's plain version on {what}")
+        check(torch.equal(y, shiftadd_matmul_bitplane(
+            LogQuantized(exp, sign), planes)),
+            f"K2 differs from its plain version on {what}")
+    torch.cuda.synchronize()
+    print(f"  {label}: one decode step's {len(calls)} K2 launches (M = "
+          f"{BATCH}, packed planes) bit-equal to K1's and K2's plain "
+          f"versions on their real activations")
+    step_calls = [(x, a, cap[3], nb)
+                  for (x, a, _, nb), cap in zip(calls, ctx.capture)]
+    return {"step_calls": step_calls, "capture": ctx.capture}
+
+
+def moe_step_bytes(cfg, batch: int, kv_len: int,
+                   tile_fraction: float) -> dict:
+    """Bytes one decode step of ``batch`` rows at ``kv_len`` cached tokens
+    moves on an attention + MoE model, from its shapes: each weight or
+    plane read once (the routed experts all, as the local formulation
+    multiplies every expert's buffer), the KV cache read and one row
+    written.  ``planes_read_packed`` scales the packed planes by the
+    step's tile-granular traffic fraction."""
+    d, el, layers = cfg.d_model, 2, cfg.n_layers
+    e, ffe = cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn = d * h * hd + 2 * d * hkv * hd + h * hd * d
+    shared = 3 * d * ffe * cfg.n_shared_experts
+    qproj = attn + shared
+    kv_row = 2 * hkv * hd * el
+    out = {
+        "routed_experts": layers * e * 3 * d * ffe * el,
+        "float_projections": layers * qproj * el,
+        "planes_packed": layers * qproj,
+        "planes_read_packed": layers * qproj * tile_fraction,
+        "router_norms": layers * (d * e * 4 + 2 * d * el) + d * el,
+        "lm_head": cfg.vocab_size * d * el,
+        "kv": batch * layers * (kv_len + 1) * kv_row,
+    }
+    rest = (out["routed_experts"] + out["router_norms"] + out["lm_head"]
+            + out["kv"])
+    out["step_float"] = out["float_projections"] + rest
+    out["step_packed"] = out["planes_packed"] + rest
+    out["qeihan_share_packed"] = out["planes_packed"] / out["step_packed"]
+    out["routed_share_packed"] = out["routed_experts"] / out["step_packed"]
+    return out
+
+
+def phase11(torch, dev, card, l2_ops, bm_ops, pa_ops) -> dict:
+    """deepseek-moe-16b at full width and depth, then one period of
+    jamba-v0.1-52b at published width, then the three MoE smoke configs
+    against the host; each model's memory is freed before the next."""
+    t_phase = time.perf_counter()
+    kernels = (l2_ops.log2quant, bm_ops.bitplane_matmul,
+               pa_ops.paged_attention, pa_ops.paged_attention_quant)
+    out = deepseek_full(torch, dev, card, kernels, bm_ops, pa_ops)
+    gc_cuda(torch)
+    out["jamba"] = jamba_period(torch, dev, card, kernels, bm_ops)
+    gc_cuda(torch)
+    for name in ("deepseek-moe-16b", "jamba-v0.1-52b", "phi3.5-moe-42b"):
+        smoke_on_card(torch, dev, name)
+    print(f"  (phase 11 took {time.perf_counter() - t_phase:.0f} s)")
+    return out
+
+
+def deepseek_full(torch, dev, card, kernels, bm_ops, pa_ops) -> dict:
+    """deepseek-moe-16b at full width and depth: one-shot float and packed
+    with stats, one decode step's graph, the bytes a step moves, K2 on a
+    step's real activations and the routed-expert products, the scheduler
+    with K3 and the expert-capacity drops of its ticks."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_params, param_count
+    from repro_torch.models.quantize import quantize_model_params
+    from repro_torch.serving import engine
+
+    t_phase = time.perf_counter()
+    cfg = get_config("deepseek-moe-16b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, generator=gen, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    pparams = quantize_model_params(cfg, params, pack=True)
+    torch.cuda.synchronize()
+    per_fwd = len(quant_names(cfg))
+    check(per_fwd == cfg.n_layers * len(PROJ), f"deepseek: {per_fwd} "
+          f"quantized projections a forward")
+    pc = param_count(cfg)
+    print(f"phase 11: {cfg.name} full width and depth, {cfg.n_layers}L "
+          f"d={cfg.d_model} {cfg.n_heads}H/{cfg.n_kv_heads}kv x "
+          f"{cfg.head_dim}, {cfg.n_experts} routed experts top-"
+          f"{cfg.experts_per_token} (ffe {cfg.moe_d_ff}) + "
+          f"{cfg.n_shared_experts} shared, vocab {cfg.vocab_size}, untied, "
+          f"{cfg.dtype}, seed 0: {pc['total'] / 1e9:.3f} B parameters "
+          f"({pc['active'] / 1e9:.3f} B active), built and quantized on "
+          f"packed planes in {time.perf_counter() - t_phase:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card; on "
+          f"{card}")
+
+    # -- one-shot: float, packed planes with stats; graph and eager -------
+    runs = one_shot(torch, dev, cfg, prompt, (
+        ("float", params, False, False),
+        ("packed+stats", pparams, True, True)), kernels, per_fwd, "deepseek")
+    tile = runs["packed+stats"]["stats"]["plane_traffic_fraction"].cpu()
+    elem = runs["packed+stats"]["stats"]["element_traffic_fraction"].cpu()
+    check(bool((tile[:-1] > 0).all() and (tile[:-1] <= 1).all()
+               and (elem[:-1] > 0).all() and (elem <= tile + 1e-6).all()
+               and tile[-1] == 0), f"deepseek: bad traffic stats {tile} "
+          f"{elem}")
+    print(f"  K2 = {cfg.n_layers} layers x (wq wk wv wo + shared gate up "
+          f"down) x {NEW} forwards = {per_fwd * NEW} launches per quantized "
+          f"run, by census x replays and by the wrappers in the eager run; "
+          f"K1 0; plane traffic per decode step: tile "
+          f"{float(tile[:-1].mean()):.6f}, element "
+          f"{float(elem[:-1].mean()):.6f}")
+    steps = step_programs(torch, dev, cfg, prompt, (
+        ("float", params, False), ("packed", pparams, True)), per_fwd)
+
+    # -- bytes per decode step at batch 4, beside the measured step -------
+    sb = moe_step_bytes(cfg, BATCH, PROMPT + NEW // 2,
+                        float(tile[:-1].mean()))
+    floor_ms = sb["routed_experts"] / HBM_BYTES_PER_S * 1e3
+    print(f"  bytes per decode step at batch {BATCH} (from the shapes, KV "
+          f"at {PROMPT + NEW // 2} tokens): routed experts "
+          f"{sb['routed_experts'] / 1e9:.4f} GB (the local formulation "
+          f"multiplies every expert's capacity buffer: {floor_ms:.3f} ms at "
+          f"3.35 TB/s), attention + shared-expert planes packed "
+          f"{sb['planes_packed'] / 1e9:.4f} GB (read by the skip rule "
+          f"{sb['planes_read_packed'] / 1e9:.4f}; float "
+          f"{sb['float_projections'] / 1e9:.4f}), lm head "
+          f"{sb['lm_head'] / 1e9:.4f} GB, router and norms "
+          f"{sb['router_norms'] / 1e9:.4f} GB, KV {sb['kv'] / 1e9:.4f} GB: "
+          f"a packed step {sb['step_packed'] / 1e9:.4f} GB "
+          f"({sb['step_packed'] / HBM_BYTES_PER_S * 1e3:.3f} ms), of which "
+          f"QeiHaN's planes {sb['qeihan_share_packed']:.4f} and the routed "
+          f"experts {sb['routed_share_packed']:.4f}; a float step "
+          f"{sb['step_float'] / 1e9:.4f} GB; measured "
+          f"{steps['packed']['replay_ms']:.4f} ms packed, "
+          f"{steps['float']['replay_ms']:.4f} ms float (device, {card})")
+
+    # -- K2 on one decode step's real activations; the routed products ----
+    k2t = deepseek_step_kernels(torch, dev, cfg, params, pparams, prompt,
+                                bm_ops, floor_ms)
+    gc_cuda(torch)
+
+    # -- the scheduler: phase 7's trace, K3, packed planes with stats -----
+    trace = serve_trace(cfg.vocab_size)
+    best, on_tick = most_pages(torch, dev)
+    # the eager run counts each routed call's slots over capacity
+    drops, dropped = [], []
+    tables = moe._dispatch_tables
+
+    def counting(ids, n_experts, capacity):
+        order, dest, keep = tables(ids, n_experts, capacity)
+        dropped.append((~keep).sum())
+        return order, dest, keep
+
+    def count_drops(sched):
+        drops.append(int(sum(dropped)))
+        dropped.clear()
+
+    sruns = {}
+    for mode in ("graph", "eager"):
+        if mode == "eager":
+            moe._dispatch_tables = counting
+        try:
+            with (engine.eager() if mode == "eager"
+                  else contextlib.nullcontext()):
+                sruns[mode] = serve(
+                    torch, dev, cfg, trace, quant=True, kernel=True,
+                    stats=True, counters=kernels, params=pparams,
+                    on_tick=on_tick if mode == "graph" else count_drops)
+        finally:
+            moe._dispatch_tables = tables
+    serve_out = {"one_shot": {tag: {
+        "graph_tok_s": BATCH * NEW / r["t_graph"],
+        "eager_tok_s": BATCH * NEW / r["t_eager"],
+        "capture_ms": r["capture_ms"], "nodes": r["nodes"]}
+        for tag, r in runs.items()}, "decode_step": steps,
+        "step_bytes": sb}
+    out = {"serve": serve_out, "k2": k2t,
+           "k2_launches": runs["packed+stats"]["replayed"]["bitplane_matmul"]}
+    for mode in ("graph", "eager"):
+        res, sched, fwd, wall, run = sruns[mode]
+        launches = (run["replayed"] if mode == "graph" else
+                    {k.__name__: k.launches for k in kernels})
+        n_fwd = sum(fwd.values())
+        check(launches["bitplane_matmul"] == per_fwd * n_fwd
+              and launches["paged_attention"] == cfg.n_layers * fwd["decode"]
+              and launches["log2quant"] == 0
+              and launches["paged_attention_quant"] == 0,
+              f"deepseek scheduler {mode}: launches {launches}, expected K2 "
+              f"{per_fwd} x {n_fwd} forwards, K3 {cfg.n_layers} x "
+              f"{fwd['decode']} decode forwards, no K1 or K4")
+        print(f"  scheduler K3 packed+stats, {mode}: forwards {fwd}; "
+              f"launches {launches}")
+        serve_out[f"scheduler/{mode}"] = tok_s(
+            f"deepseek packed+stats {mode}", res, wall, run, sched)
+        if mode == "graph":
+            out["k3_launches"] = launches["paged_attention"]
+            program_report(sched, "deepseek packed+stats graph")
+            rep = tick_replay_ms(torch, sched)
+            (tick,) = sched.programs()["tick"].entries()
+            nodes = engine.graph_nodes(tick)
+            per_step = rep / sched.tick_steps
+            serve_out["scheduler/graph"].update(
+                replay_step_ms=per_step,
+                nodes_per_step=(nodes[0] / sched.tick_steps if nodes
+                                else None),
+                compile_stats=sched.compile_stats())
+            st = sched.prefix_cache_stats()
+            print(f"    tick graph replayed alone: {rep:.3f} ms device time "
+                  f"= {per_step:.3f} ms per decode step of "
+                  f"{sched.max_slots} slots (CUDA events, {card}); "
+                  + (f"{nodes[0] / sched.tick_steps:.0f} kernel nodes per "
+                     f"step; " if nodes else "")
+                  + f"host ms per decode step "
+                  f"{serve_out['scheduler/graph']['step_ms']:.3f}; prefix "
+                  f"cache hit_rate {st['hit_rate']:.6f}")
+            tile_r = sum(r.plane_traffic_fraction for r in res) / len(res)
+            check(0 < tile_r <= 1, f"deepseek traffic fraction {tile_r}")
+    held_equal("deepseek packed+stats", sruns["graph"], sruns["eager"])
+    worst = max(range(len(drops)), key=drops.__getitem__)
+    check(drops[worst] > 0, "deepseek: no tick dropped a routed slot")
+    cap8 = min(int(SERVE["max_slots"] * cfg.experts_per_token
+                   / cfg.n_experts * cfg.capacity_factor) + 1,
+               SERVE["max_slots"])
+    serve_out["dropped_slots"] = {"max_tick": drops[worst],
+                                  "total": sum(drops),
+                                  "ticks_with_drops": sum(d > 0
+                                                          for d in drops),
+                                  "ticks": len(drops)}
+    serve_out["dropped_slots"]["last_tick"] = drops[-1]
+    print(f"  the graph run equals its engine.eager() run in tokens, "
+          f"per-request stats, forwards and every tick's page table; expert "
+          f"capacity drops (eager run, routed slots over capacity, summed "
+          f"over a tick's forwards and layers): tick {worst} dropped "
+          f"{drops[worst]}, the last tick (decode only) {drops[-1]}; "
+          f"{serve_out['dropped_slots']['ticks_with_drops']} of "
+          f"{len(drops)} ticks dropped, {sum(drops)} in all (a decode "
+          f"forward of {SERVE['max_slots']} slots admits {cap8} slot a "
+          f"expert)")
+    out["k3"] = k3_tick(torch, dev, card, cfg, pa_ops, best)
+    print(f"  (deepseek-moe-16b took {time.perf_counter() - t_phase:.0f} s)")
+    return out
+
+
+def deepseek_step_kernels(torch, dev, cfg, params, pparams, prompt, bm_ops,
+                          floor_ms) -> dict:
+    """K2 on one decode step's real activations (``moe_decode_k2``) by
+    CUDA-graph replay on both plane layouts, beside its bound, its plain
+    version and the bf16 ``torch.matmul`` of the same shapes; the
+    routed-expert products of one step beside their byte bound."""
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    k2in = moe_decode_k2(torch, dev, cfg, pparams, prompt, bm_ops,
+                         "deepseek")
+    layouts, k2_step, plain_step, _, bounds = k2_decode_step(
+        torch, bm_ops, k2in["step_calls"], k2in["capture"])
+    blk = params["blocks"][0]
+    weights = [blk[p] for p in PROJ[:4]] + [blk["mlp"]["shared"][p]
+                                            for p in PROJ[4:]]
+    acts = [torch.randn((BATCH, w.shape[1]), generator=gen, device=dev,
+                        dtype=torch.bfloat16) for w in weights]
+
+    def matmul_step():
+        for r in range(cfg.n_layers):
+            for a, w in zip(acts, weights):
+                torch.matmul(a, w[r])
+
+    experts = blk["mlp"]["experts"]
+    cap = min(int(BATCH * cfg.experts_per_token / cfg.n_experts
+                  * cfg.capacity_factor) + 1, BATCH)
+    buf = torch.randn((cfg.n_experts, cap, cfg.d_model), generator=gen,
+                      device=dev, dtype=cfg.dtype)
+
+    def routed_step():
+        for r in range(cfg.n_layers):
+            moe._expert_ffn(buf, {k: v[r] for k, v in experts.items()},
+                            cfg.dtype)
+
+    n_calls = len(k2in["step_calls"])
+    ms = {lay: graph_ms(torch, k2_step(lay)) for lay in layouts}
+    k2t = {"ms": ms["unpacked"], "ms_packed": ms["packed"],
+           "plain_ms": graph_ms(torch, plain_step),
+           "bound_ms": bounds["unpacked"][0],
+           "bound_by": bounds["unpacked"][1],
+           "bound_ms_packed": bounds["packed"][0],
+           "bound_by_packed": bounds["packed"][1], "library_ms": None,
+           "context_matmul_ms": graph_ms(torch, matmul_step),
+           "routed_ms": graph_ms(torch, routed_step, reps=5),
+           "routed_bound_ms": floor_ms,
+           "scope": f"one deepseek-moe-16b decode step: {n_calls} launches "
+                    f"({cfg.n_layers} layers x wq wk wv wo + shared gate up "
+                    f"down), M={BATCH}"}
+    print(f"  K2 on that step, CUDA-graph replay: unpacked "
+          f"{k2t['ms']:.4f} ms (bound {k2t['bound_ms']:.5f}, "
+          f"{k2t['bound_by']}), packed {k2t['ms_packed']:.4f} ms (bound "
+          f"{k2t['bound_ms_packed']:.5f}, {k2t['bound_by_packed']}); plain "
+          f"version {k2t['plain_ms']:.4f} ms; context: bf16 torch.matmul of "
+          f"the same {n_calls} shapes {k2t['context_matmul_ms']:.4f} ms")
+    print(f"  routed-expert products of one decode step ({cfg.n_layers} "
+          f"layers x {cfg.n_experts} experts x capacity {cap}, gate, up, "
+          f"silu, down as torch.bmm): {k2t['routed_ms']:.4f} ms against "
+          f"their byte bound {floor_ms:.4f} ms")
+    return k2t
+
+
+def gc_cuda(torch) -> None:
+    """Free what the dropped references held on the card (the one-shot
+    programs' graphs too)."""
+    import gc
+
+    from repro_torch.serving import engine
+
+    engine.clear_generate_cache()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def jamba_period(torch, dev, card, kernels, bm_ops) -> dict:
+    """jamba-v0.1-52b at published width, cut to one 8-layer period of its
+    32 layers: one-shot float and packed (graph and eager equal), and one
+    decode step's K2 calls held against the plain versions."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params, param_count
+    from repro_torch.models.quantize import quantize_model_params
+
+    t0 = time.perf_counter()
+    full = get_config("jamba-v0.1-52b")
+    cfg = full.replace(n_layers=len(full.pattern))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, generator=gen, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    pparams = quantize_model_params(cfg, params, pack=True)
+    torch.cuda.synchronize()
+    per_fwd = len(quant_names(cfg))
+    pc = param_count(cfg)
+    reduced = {"n_layers": [full.n_layers, cfg.n_layers]}
+    print(f"  jamba: {cfg.name} at published width (d {cfg.d_model}, "
+          f"{cfg.n_heads}H/{cfg.n_kv_heads}kv, {cfg.ssm_heads} SSD heads x "
+          f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, {cfg.n_experts} "
+          f"experts top-{cfg.experts_per_token} ffe {cfg.moe_d_ff}, vocab "
+          f"{cfg.vocab_size}), reduced {reduced} (one period: "
+          f"{cfg.pattern}): {pc['total'] / 1e9:.3f} B parameters, built "
+          f"and quantized on packed planes in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    runs = one_shot(torch, dev, cfg, prompt, (
+        ("float", params, False, False), ("packed", pparams, True, False)),
+        kernels, per_fwd, "jamba")
+    moe_decode_k2(torch, dev, cfg, pparams, prompt, bm_ops, "jamba")
+    out = {"reduced": reduced, "k2_launches": runs["packed"]["replayed"][
+        "bitplane_matmul"], "one_shot": {tag: {
+            "graph_tok_s": BATCH * NEW / r["t_graph"],
+            "eager_tok_s": BATCH * NEW / r["t_eager"],
+            "capture_ms": r["capture_ms"]} for tag, r in runs.items()}}
+    return out
+
+
 def _to(torch, tree, dev):
-    """Move a params tree (dicts, QuantizedLinearParams, tensors) to dev."""
+    """Move a params tree (dicts, tuples, QuantizedLinearParams, tensors)
+    to dev."""
     if isinstance(tree, dict):
         return {k: _to(torch, v, dev) for k, v in tree.items()}
     if isinstance(tree, tuple):
-        return type(tree)(*(None if v is None else _to(torch, v, dev)
-                            for v in tree))
+        items = (None if v is None else _to(torch, v, dev) for v in tree)
+        return (type(tree)(*items) if hasattr(tree, "_fields")
+                else tuple(items))
     return tree.to(dev)
 
 

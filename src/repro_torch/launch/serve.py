@@ -23,8 +23,9 @@ package's::
         [--kv-quant [BITS]] [--config serve.json] [--dump-config [PATH]]
 
 ``--arch`` takes every configuration of ``repro_torch.configs`` (smollm-135m,
-mamba2-780m); ``--kv-quant`` on a model without an attention layer is
-refused, as its pool holds recurrent state only.
+mamba2-780m, deepseek-moe-16b, jamba-v0.1-52b, phi3.5-moe-42b);
+``--kv-quant`` on a model without an attention layer (``attn`` or
+``attn_moe``) is refused, as its pool holds recurrent state only.
 
 The device defaults to the card, where every serving step runs as a
 CUDA-graph replay (its first call captures it: the one-shot mode times a
@@ -44,7 +45,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke
-from repro_torch.models.model import init_params
+from repro_torch.models.model import base_kind, init_params
 from repro_torch.models.quantize import quantize_model_params
 from repro_torch.serving.engine import greedy_generate
 
@@ -230,7 +231,8 @@ def main(argv=None):
                          "flags derive, then exit")
     args = ap.parse_args(argv)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    if args.kv_quant is not None and "attn" not in cfg.pattern:
+    if args.kv_quant is not None and not any(base_kind(k) == "attn"
+                                             for k in cfg.pattern):
         ap.error(f"--kv-quant: {cfg.name} has no attention layer; its pool "
                  f"holds SSM/conv state only, which has no KV pages to "
                  f"quantize")

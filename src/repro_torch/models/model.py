@@ -1,5 +1,5 @@
-"""Decoder models (port of ``src/repro/models/model.py`` for the ``attn``
-and ``mamba`` block kinds).
+"""Decoder models (port of ``src/repro/models/model.py`` for the ``attn``,
+``mamba``, ``attn_moe`` and ``mamba_moe`` block kinds).
 
 A model is a periodic ``pattern`` of block kinds repeated ``n_layers /
 len(pattern)`` times.  Parameters keep the reference's layout: one block
@@ -13,7 +13,8 @@ position holds ``(R, B, max_len, G, D)`` K/V (the paged slot pool of
 ``kv_quant`` packed log2 codes, per-page scales and a tail ring); a mamba
 position holds its per-slot recurrent state ``ssm (R, B, H, P, N)`` f32
 and conv window ``conv (R, B, W-1, conv_dim)``, dense even in a paged
-pool (a recurrence has no per-position rows to page).
+pool (a recurrence has no per-position rows to page).  A ``*_moe`` kind
+is its base kind with a Mixture-of-Experts MLP (``models/moe.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from repro_torch.core.shiftadd import QuantizedLinearParams, as_quant_ctx
 from repro_torch.models.attention import (KVCache, PagedKVCache,
                                           QuantPagedKVCache, attention)
 from repro_torch.models.layers import rms_norm, swiglu
+from repro_torch.models.moe import moe_apply
 from repro_torch.models.ssd import (SSMState, mamba2_block,
                                     mamba2_init_state, write_rows_)
 
@@ -38,9 +40,9 @@ Params = Dict[str, Any]
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """The attention and SSM fields of the reference's ``ModelConfig``,
-    with torch dtypes (the MoE and frontend fields belong to later slices
-    of the port).
+    """The attention, MoE and SSM fields of the reference's
+    ``ModelConfig``, with torch dtypes (the frontend fields belong to a
+    later slice of the port).
 
     ``paged_attn_kernel``: ``"off"`` reads the paged pool through the
     dense gather; ``"pallas"`` (the reference's name) through the CUDA
@@ -68,6 +70,12 @@ class ModelConfig:
     paged_attn_splits: int = 1
     kv_quant: bool = False
     kv_bits: int = 4
+    # MoE
+    n_experts: int = 0
+    experts_per_token: int = 0
+    n_shared_experts: int = 0
+    moe_d_ff: int = 0
+    capacity_factor: float = 1.25
     # SSM (Mamba-2)
     ssm_state: int = 0
     ssm_heads: int = 0
@@ -90,12 +98,17 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-PORTED_KINDS = ("attn", "mamba")
+PORTED_KINDS = ("attn", "mamba", "attn_moe", "mamba_moe")
+
+
+def base_kind(kind: str) -> str:
+    """``attn`` or ``mamba``: the mixer of a block kind, as the reference
+    splits it (``attn_moe`` -> ``attn``)."""
+    return kind.split("_")[0]
 
 
 def _check_kinds(cfg: ModelConfig) -> None:
-    """Raise for a pattern with a block kind the port does not serve yet
-    (``attn_moe`` and ``mamba_moe`` wait for the MoE slice)."""
+    """Raise for a pattern with a block kind the port does not serve."""
     bad = [k for k in cfg.pattern if k not in PORTED_KINDS]
     if bad:
         raise NotImplementedError(f"pattern {cfg.pattern}: block kinds {bad} "
@@ -106,8 +119,10 @@ def _check_kinds(cfg: ModelConfig) -> None:
 # parameter init
 # ---------------------------------------------------------------------------
 
-def _normal(shape, gen: torch.Generator, dev: torch.device, scale: float,
-            dtype) -> torch.Tensor:
+def _normal(shape, gen: Optional[torch.Generator], dev: torch.device,
+            scale: float, dtype) -> torch.Tensor:
+    if dev.type == "meta":                  # shapes only (param_count)
+        return torch.empty(shape, dtype=dtype, device=dev)
     x = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
     return (x * scale).to(device=dev, dtype=dtype)
@@ -124,7 +139,7 @@ def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator,
     def const(shape, value, dtype=dt):
         return torch.full((r, *shape), value, dtype=dtype, device=dev)
 
-    if kind == "attn":
+    if base_kind(kind) == "attn":
         h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         block = {"ln1": const((d,), 1.0), "wq": proj(d, h * hd),
                  "wk": proj(d, hkv * hd), "wv": proj(d, hkv * hd),
@@ -147,7 +162,10 @@ def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator,
                  "d_skip": const((h,), 1.0, torch.float32),
                  "norm": const((di,), 1.0),
                  "out_proj": proj(di, d)}
-    if kind == "attn" or cfg.d_ff:
+    if kind.endswith("_moe"):
+        block["ln2"] = const((d,), 1.0)
+        block["mlp"] = _init_moe(cfg, gen, dev, proj)
+    elif base_kind(kind) == "attn" or cfg.d_ff:
         ff = cfg.d_ff
         block["ln2"] = const((d,), 1.0)
         block["mlp"] = {"gate": proj(d, ff), "up": proj(d, ff),
@@ -155,16 +173,44 @@ def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator,
     return block
 
 
+def _init_moe(cfg: ModelConfig, gen, dev: torch.device, proj) -> Params:
+    """A MoE MLP stacked over repeats: the f32 router (d, E), N(0, 0.02);
+    routed experts (E, d, ffe) and (E, ffe, d) drawn as the reference's
+    ``dense_init(E*K, N)`` reshaped (scale ``1/sqrt(E*K)``), one repeat
+    at a time into the io-dtype leaf (an f32 draw of deepseek's whole
+    stacked leaf would take 20 GB); shared experts a dense MLP of width
+    ``ffe * n_shared_experts``."""
+    dt, r, d, e = cfg.dtype, cfg.repeats, cfg.d_model, cfg.n_experts
+    ffe = cfg.moe_d_ff or cfg.d_ff
+
+    def experts(k, n):
+        out = torch.empty((r, e, k, n), dtype=dt, device=dev)
+        for i in range(r):
+            out[i] = _normal((e, k, n), gen, dev, 1.0 / (e * k) ** 0.5, dt)
+        return out
+
+    mlp = {"router": _normal((r, d, e), gen, dev, 0.02, torch.float32),
+           "experts": {"gate": experts(d, ffe), "up": experts(d, ffe),
+                       "down": experts(ffe, d)}}
+    if cfg.n_shared_experts:
+        ffs = ffe * cfg.n_shared_experts
+        mlp["shared"] = {"gate": proj(d, ffs), "up": proj(d, ffs),
+                         "down": proj(ffs, d)}
+    return mlp
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device=None) -> Params:
     """Random weights with the reference's shapes and scales: embeddings
     N(0, 0.02), projections N(0, 1/sqrt(K)), conv weights N(0, 0.2^2),
-    norms and ``d_skip`` 1, biases, ``dt_bias`` and ``a_log`` 0.  A mamba
-    block has an MLP only when ``d_ff`` is set.  ``generator`` defaults to
-    one seeded with 0 on ``device``."""
+    norms and ``d_skip`` 1, biases, ``dt_bias`` and ``a_log`` 0; a
+    ``*_moe`` block's MLP as :func:`_init_moe`.  A mamba block has a dense
+    MLP only when ``d_ff`` is set.  ``generator`` defaults to one seeded
+    with 0 on ``device``; ``device="meta"`` gives the shapes alone."""
     _check_kinds(cfg)
     dev = resolve_device(device)
-    gen = generator or torch.Generator(device=dev).manual_seed(0)
+    gen = generator or (None if dev.type == "meta" else
+                        torch.Generator(device=dev).manual_seed(0))
     blocks = tuple(_init_block(cfg, kind, gen, dev) for kind in cfg.pattern)
     params: Params = {
         "embed": _normal((cfg.vocab_size, cfg.d_model), gen, dev, 0.02,
@@ -206,7 +252,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     layers = tuple(
         {"k": torch.zeros(shape, dtype=dtype, device=dev),
          "v": torch.zeros(shape, dtype=dtype, device=dev)}
-        if kind == "attn" else _ssm_leaves(cfg, batch, dtype, dev)
+        if base_kind(kind) == "attn" else _ssm_leaves(cfg, batch, dtype, dev)
         for kind in cfg.pattern)
     length = (torch.zeros((batch,), dtype=torch.int32, device=dev)
               if per_slot else 0)
@@ -240,7 +286,7 @@ def init_paged_pool(cfg: ModelConfig, batch: int, max_len: int,
     r, g, d = cfg.repeats, cfg.n_kv_heads, cfg.head_dim
     layers = []
     for kind in cfg.pattern:
-        if kind != "attn":
+        if base_kind(kind) != "attn":
             layers.append(_ssm_leaves(cfg, batch, dtype, dev))
             continue
         layer = {}
@@ -297,7 +343,7 @@ def _apply_block(cfg: ModelConfig, kind: str, p: Params, x, positions,
                  cache, quant, valid_len=None, chunk_valid=None,
                  state_rows=None):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if kind == "attn":
+    if base_kind(kind) == "attn":
         out, _ = attention(p, h, positions, cfg, cache=cache, quant=quant,
                            chunk_valid=chunk_valid)
     else:
@@ -314,7 +360,10 @@ def _apply_block(cfg: ModelConfig, kind: str, p: Params, x, positions,
     x = x + out
     if "mlp" in p:
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + swiglu(p["mlp"], h2, quant=quant)
+        if kind.endswith("_moe"):
+            x = x + moe_apply(p["mlp"], h2, cfg, quant=quant)
+        else:
+            x = x + swiglu(p["mlp"], h2, quant=quant)
     return x
 
 
@@ -349,9 +398,12 @@ def forward(cfg: ModelConfig, params: Params, *, tokens: torch.Tensor,
     writes in place.
 
     ``quant`` (bool | QuantCtx) routes every eligible projection (attention
-    ``wq wk wv wo``, MLP ``gate up down``, mamba ``wz wx out_proj``)
-    through the QeiHaN path.  With ``return_stats=True`` a third element
-    holds the weight-plane traffic summed over every quantized projection:
+    ``wq wk wv wo``, dense and shared-expert MLP ``gate up down``, mamba
+    ``wz wx out_proj``) through the QeiHaN path; routed experts and the
+    router stay float.  A MoE block routes all ``B*S`` rows of the call
+    together, so its expert capacity follows the call's shape.  With
+    ``return_stats=True`` a third element holds the weight-plane traffic
+    summed over every quantized projection:
     ``plane_fetched``, ``plane_total``, ``plane_traffic_fraction`` (tile
     granular) and ``element_traffic_fraction`` (ASIC bank model); zeros on
     the float path.
@@ -406,3 +458,31 @@ def forward(cfg: ModelConfig, params: Params, *, tokens: torch.Tensor,
              "plane_traffic_fraction": tile_f / torch.clamp(tile_t, min=1.0),
              "element_traffic_fraction": el_f / torch.clamp(el_t, min=1.0)}
     return logits, new_caches, stats
+
+
+def _leaves(tree):
+    """The tensors of a tree of dicts, tuples (named ones too) and lists."""
+    if torch.is_tensor(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
+
+
+def param_count(cfg: ModelConfig) -> Dict[str, int]:
+    """Parameter counts (total, and active: routed experts scaled by
+    ``experts_per_token / n_experts``) of :func:`init_params`'s tree, from
+    its shapes on the meta device (nothing is allocated)."""
+    tree = init_params(cfg, device="meta")
+    total = sum(t.numel() for t in _leaves(tree))
+    expert = sum(t.numel() for kind, blk in zip(cfg.pattern, tree["blocks"])
+                 if kind.endswith("_moe")
+                 for t in _leaves(blk["mlp"]["experts"]))
+    if cfg.n_experts:
+        active = total - expert * (1 - cfg.experts_per_token / cfg.n_experts)
+    else:
+        active = total
+    return {"total": int(total), "active": int(active)}

@@ -1,10 +1,11 @@
 """Attach the QeiHaN representation to a model's projections (port of
-``src/repro/models/quantize.py`` for the ``attn`` and ``mamba`` blocks).
+``src/repro/models/quantize.py``).
 
-Every attention ``wq/wk/wv/wo``, mamba ``wz/wx/out_proj`` and dense MLP
-``gate/up/down`` leaf gets a ``QuantizedLinearParams`` under
-``<name>_q``, stacked over repeats like the float leaf, which stays beside
-it.  The mamba ``wb/wc/wdt`` projections stay float, as in the reference.
+Every attention ``wq/wk/wv/wo``, mamba ``wz/wx/out_proj``, dense MLP and
+shared-expert ``gate/up/down`` leaf gets a ``QuantizedLinearParams``
+under ``<name>_q``, stacked over repeats like the float leaf, which stays
+beside it.  The mamba ``wb/wc/wdt`` projections, the MoE router and the
+routed experts stay float, as in the reference.
 ``pack=True`` stores the planes packed 8-to-a-byte along K (the
 int8-footprint deploy format).
 """
@@ -18,7 +19,7 @@ import torch
 from repro_torch.core.bitplane import pack_planes
 from repro_torch.core.shiftadd import (QuantizedLinearParams,
                                        quantized_linear_init)
-from repro_torch.models.model import ModelConfig, _check_kinds
+from repro_torch.models.model import ModelConfig, _check_kinds, base_kind
 
 _ATTN_PROJ = ("wq", "wk", "wv", "wo")
 _MLP_PROJ = ("gate", "up", "down")
@@ -41,6 +42,13 @@ def _quantize_stacked(w: torch.Tensor, act_scale: float = 1.0,
         bias=None)
 
 
+def _quantize_mlp(mlp: Dict[str, Any], act_scale: float,
+                  pack: bool) -> Dict[str, Any]:
+    return {**mlp, **{name + "_q": _quantize_stacked(mlp[name], act_scale,
+                                                     pack)
+                      for name in _MLP_PROJ}}
+
+
 def quantize_model_params(cfg: ModelConfig, params: Dict[str, Any],
                           act_scale: float = 1.0,
                           pack: bool = False) -> Dict[str, Any]:
@@ -48,13 +56,16 @@ def quantize_model_params(cfg: ModelConfig, params: Dict[str, Any],
     blocks = []
     for kind, block in zip(cfg.pattern, params["blocks"]):
         blk = dict(block)
-        for name in _ATTN_PROJ if kind == "attn" else _MAMBA_PROJ:
+        names = _ATTN_PROJ if base_kind(kind) == "attn" else _MAMBA_PROJ
+        for name in names:
             blk[name + "_q"] = _quantize_stacked(blk[name], act_scale, pack)
         if "mlp" in blk:
-            mlp = dict(blk["mlp"])
-            for name in _MLP_PROJ:
-                mlp[name + "_q"] = _quantize_stacked(mlp[name], act_scale,
-                                                     pack)
+            mlp = blk["mlp"]
+            if "experts" not in mlp:                # dense MLP
+                mlp = _quantize_mlp(mlp, act_scale, pack)
+            if "shared" in mlp:
+                mlp = dict(mlp, shared=_quantize_mlp(mlp["shared"],
+                                                     act_scale, pack))
             blk["mlp"] = mlp
         blocks.append(blk)
     out = dict(params)

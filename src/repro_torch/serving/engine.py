@@ -49,7 +49,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.shiftadd import QuantCtx, as_quant_ctx
-from repro_torch.models.model import ModelConfig, forward, init_caches
+from repro_torch.models.model import (ModelConfig, _leaves, forward,
+                                      init_caches)
 
 QuantFlag = Union[bool, str, QuantCtx]
 
@@ -93,18 +94,6 @@ def launch_counts() -> Dict[str, int]:
     return {k.__name__: k.launches
             for k in (l2_ops.log2quant, bm_ops.bitplane_matmul,
                       pa_ops.paged_attention, pa_ops.paged_attention_quant)}
-
-
-def _leaves(tree):
-    """The tensors of a tree of dicts, tuples (named ones too) and lists."""
-    if torch.is_tensor(tree):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (tuple, list)):
-        for v in tree:
-            yield from _leaves(v)
 
 
 def fingerprint(tree) -> tuple:

@@ -32,14 +32,15 @@ skipping pays:
   power-of-two scale, each slot's two newest pages also dense in a tail
   ring; decode reads go through the quantized kernel (``attn_kernel``) or
   the dequantizing gather.
-* **Recurrent state** (``mamba`` blocks) — each slot's SSM/conv state is
-  dense per slot, even in a paged pool.  A decode step leaves an inactive
-  slot's state as it was, a fresh chunked admission starts from zero
-  state, and a prefix hit needs the state at its boundary: a device
-  snapshot of the donor slot's state, taken when its ingestion lands
-  exactly on the page-aligned prompt boundary (a row whose last chunk
-  lands there is held out of that tick's decode), kept on the radix node
-  under the ``snapshot_limit`` LRU, and restored into the hitting slot.
+* **Recurrent state** (``mamba`` and ``mamba_moe`` blocks) — each slot's
+  SSM/conv state is dense per slot, even in a paged pool.  A decode step
+  leaves an inactive slot's state as it was, a fresh chunked admission
+  starts from zero state, and a prefix hit needs the state at its
+  boundary: a device snapshot of the donor slot's state, taken when its
+  ingestion lands exactly on the page-aligned prompt boundary (a row
+  whose last chunk lands there is held out of that tick's decode), kept
+  on the radix node under the ``snapshot_limit`` LRU, and restored into
+  the hitting slot.
 
 Each device step is a :class:`~repro_torch.serving.engine.Program`, the
 port's counterpart of the reference's jitted programs, which on the card
@@ -76,7 +77,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.logquant import dequantize_page_codes
 from repro_torch.models.attention import _quant_paged_write, page_slots
-from repro_torch.models.model import (ModelConfig, init_caches,
+from repro_torch.models.model import (ModelConfig, base_kind, init_caches,
                                       init_paged_pool)
 from repro_torch.serving import engine
 from repro_torch.serving.config import ServeConfig
@@ -209,7 +210,7 @@ class ServeScheduler:
         self.paged = paged = config.paged
         self.page_len = config.page_len if paged else 0
         self.prefix_cache = config.prefix_cache
-        self._has_ssm = "mamba" in cfg.pattern
+        self._has_ssm = any(base_kind(k) == "mamba" for k in cfg.pattern)
         self.min_prefix_hit = config.min_prefix_hit
         self.attn_kernel = config.attn_kernel
         self.attn_splits = config.attn_splits

@@ -11,8 +11,9 @@ scales and the tail ring's dead rows bitwise invisible.  Both kernels are
 also held at the serving path's geometry (page_len 16, 32 table columns,
 rows up to 512 tokens, so every warp of a block walks several pages), and
 there at D = 128 and R = 8.  K2 is also held at mamba2-780m's projection
-shapes, and the mamba smoke config's serving programs (scheduler ticks
-with SSM snapshots, the one-shot generate) as CUDA graphs against
+shapes, the mamba smoke config's serving programs (scheduler ticks
+with SSM snapshots, the one-shot generate) and the deepseek-moe smoke
+config's (ticks that overflow expert capacity) as CUDA graphs against
 ``engine.eager()``.
 
 Every test here is marked ``cuda`` and skips on a host without an NVIDIA
@@ -885,3 +886,75 @@ def test_capture_survives_a_dead_program_in_a_cycle(cuda):
     assert torch.equal(live(x)[0], x * 2)
     assert torch.equal(live(x + 1)[0], (x + 1) * 2)
     assert live.entries()[0].replays == 2
+
+
+# ---------------------------------------------------------------------------
+# the MoE smoke config's serving programs as CUDA graphs
+# ---------------------------------------------------------------------------
+
+def test_moe_graph_tick_bit_equal_to_eager_and_to_itself(cuda):
+    """deepseek-moe smoke (8 experts top-3, 2 shared) quantized with
+    stats, paged with the prefix cache and K3: the scheduler's graphs
+    against ``engine.eager()`` and a second graph run, over a trace whose
+    ticks overflow expert capacity (3 slots x 3 slots over 8 experts
+    admit 2 a expert): tokens, per-request stats, and after every tick
+    the lengths, page tables and pool bytes equal bit for bit.  The
+    combine is an ordered sum (no atomics), so nothing moves between
+    runs.  Then the one-shot program: eager, graph, graph equal."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_params
+    from repro_torch.models.quantize import quantize_model_params
+    from repro_torch.serving import engine
+
+    cfg = get_smoke("deepseek-moe-16b")
+    params = quantize_model_params(cfg, init_params(
+        cfg, generator=torch.Generator(device=cuda).manual_seed(0),
+        device=cuda), pack=True)
+    kw = dict(GRAPH_PAGED, quant="pallas", with_stats=True)
+    prompts = _graph_prompts(cfg.vocab_size)
+    tables, dropped = moe._dispatch_tables, []
+
+    def counting(ids, n_experts, capacity):
+        order, dest, keep = tables(ids, n_experts, capacity)
+        dropped.append(int((~keep).sum()))
+        return order, dest, keep
+
+    moe._dispatch_tables = counting
+    try:
+        with engine.eager():
+            _, elog, eres = _serve_ticks(cfg, params, kw, prompts)
+    finally:
+        moe._dispatch_tables = tables
+    assert sum(dropped) > 0
+    runs = [_serve_ticks(cfg, params, kw, prompts) for _ in range(2)]
+    for sched, glog, gres in runs:
+        assert gres == eres
+        assert len(glog) == len(elog)
+        for t, (g, e) in enumerate(zip(glog, elog)):
+            assert torch.equal(g[0], e[0]), f"lengths, tick {t}"
+            assert np.array_equal(g[1], e[1]), f"table, tick {t}"
+            for a, b in zip(g[2], e[2]):
+                assert torch.equal(a, b), f"pool bytes, tick {t}"
+        for name, prog in sched.programs().items():
+            for entry in prog.entries():
+                assert entry.graph is not None
+                assert entry.replays == entry.calls >= 1, name
+        tick = sched.programs()["tick"].entries()[0].census
+        assert tick["bitplane_matmul"] == cfg.n_layers * 7 * 4
+        assert tick["paged_attention"] == cfg.n_layers * 4
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 9), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    outs = []
+    for mode in ("eager", "graph", "graph"):
+        with engine.eager() if mode == "eager" else torch.no_grad():
+            outs.append(engine.greedy_generate(cfg, params, prompt, 8,
+                                               quant=True, with_stats=True))
+    for toks, st in outs[1:]:
+        assert torch.equal(toks, outs[0][0])
+        for key in st:
+            assert torch.equal(st[key], outs[0][1][key])

@@ -129,8 +129,10 @@ def test_params_and_caches_match_reference_layout(pattern, d_ff):
 
 
 def test_unported_kinds_raise():
-    cfg = get_smoke("mamba2-780m").replace(pattern=("mamba_moe",))
-    with pytest.raises(NotImplementedError, match="mamba_moe"):
+    """A block kind outside ``PORTED_KINDS`` (the ``*_moe`` kinds are
+    served since the MoE slice) raises."""
+    cfg = get_smoke("mamba2-780m").replace(pattern=("mamba_conv",))
+    with pytest.raises(NotImplementedError, match="mamba_conv"):
         model.init_params(cfg, device="cpu")
 
 
