@@ -15,12 +15,17 @@ Phases, in order; any failure exits non-zero before the result line:
    bit-equal to its plain version (``log2_quantize`` of ``x / act_scale``,
    ``unpack_planes``, ``shiftadd_matmul_bitplane``) and, up to 4 bits, to
    the direct-shift oracle on the card: every main-path (K, N), smollm-135m's,
-   mamba2-780m's (1536, 3072) and (3072, 1536) and deepseek-moe-16b's
+   mamba2-780m's (1536, 3072) and (3072, 1536), deepseek-moe-16b's
    (2048, 2048), (2048, 2816) and (2816, 2048) (22 K-tiles over 8 cluster
-   ranks), with M in
+   ranks) and qwen3-32b's (5120, 8192), (5120, 1024), (8192, 5120),
+   (5120, 25600) and (25600, 5120) (200 K-tiles), with M in
    ``PHASE3_M``, unpacked and packed planes, x in f32 and bf16, act_scale
    in ``PHASE3_SCALES``, n_bits 2..5, both of the kernel's bodies (the
-   tensor cores up to 4 bits) and the wrapper's own choice; the codes it
+   tensor cores up to 4 bits) and the wrapper's own choice (the oracle,
+   whose temporaries are (rows, K, N), on at most 16 rows at qwen3's
+   shapes); the projection shapes of qwen2.5-14b, phi4-mini-3.8b,
+   internvl2-26b and musicgen-medium (``OTHER_KN``) at M 4 and 128, bf16,
+   n_bits 4, both layouts and bodies; the codes it
    writes equal K1's plain version; cold activations, extreme exponents
    and a fully pruned tile; the codes entry (prologue skipped); one
    CUDA-graph capture and replay equal to the eager result;
@@ -63,8 +68,11 @@ Phases, in order; any failure exits non-zero before the result line:
    smollm-135m's (3, 3, 64) at page_len 16, and the serving path's
    geometry (page_len 16, 32 table columns, lengths 512..0, so that every
    warp of a block walks several pages) at (G, R, D) (3, 3, 64), (3, 3,
-   128), (1, 8, 64), deepseek-moe-16b's (16, 1, 128) and
-   jamba-v0.1-52b's (8, 4, 128), splits 1..4, f32 and bf16, at the reference's
+   128), (1, 8, 64), deepseek-moe-16b's (16, 1, 128), jamba-v0.1-52b's
+   (8, 4, 128), qwen3-32b's (8, 8, 128) (the walk's whole row tile),
+   qwen2.5-14b's (8, 5, 128), phi4-mini's (8, 3, 128), internvl2-26b's
+   (8, 6, 128) and musicgen-medium's (24, 1, 64), splits 1..4, f32 and
+   bf16, at the reference's
    tolerances (f32 ``rtol=2e-5, atol=2e-6``; bf16 ``atol=2e-2``);
    trash-page poison of +-1e4 bitwise invisible on live rows, also at the
    serving geometry, length-0 rows finite; ``gather_traffic_counts`` on
@@ -143,10 +151,12 @@ Phases, in order; any failure exits non-zero before the result line:
    bytes one decode step moves, split into projection weights or planes
    and SSM/conv state (from the model's shapes).  Then phase 7's trace and
    ``ServeConfig`` through ``ServeScheduler``, quantized on packed planes
-   with stats, as graphs and under ``engine.eager()``, held equal in
-   tokens, stats, forwards and every tick's page table: tok/s, ms per
-   decode step (host clock, and the tick graph replayed alone), graph
-   nodes per step, ``compile_stats()``, hit rate and snapshots taken.
+   with stats, as graphs: tok/s, ms per decode step (host clock, and the
+   tick graph replayed alone), graph nodes per step, ``compile_stats()``,
+   hit rate and snapshots taken; then the model's first ``CUT_LAYERS``
+   (4) layers over the same trace as graphs and under ``engine.eager()``,
+   held equal in tokens, stats, forwards, snapshots and every tick's page
+   table (an eager run at 48 layers takes minutes).
    Last, three requests sharing a 64-token prefix (``chunked="always"``,
    ``chunk_len == page_len == 16``, the first served before the other
    two are submitted): 2 hits through SSM snapshots, tokens equal to the
@@ -164,9 +174,10 @@ Phases, in order; any failure exits non-zero before the result line:
    K2's plain versions, its time on both plane layouts beside its bound,
    and the routed-expert products of the step beside their byte bound.
    Then phase 7's trace and ``ServeConfig`` with K3, packed planes with
-   stats, as graphs and under ``engine.eager()``, held equal; tok/s, ms
-   per decode step (host, device), nodes per step, ``compile_stats()``,
-   the routed slots each tick dropped over expert capacity (eager run),
+   stats, as graphs: tok/s, ms per decode step (host, device), nodes per
+   step, ``compile_stats()``; the first ``CUT_LAYERS`` (4) layers over the
+   same trace as graphs and under ``engine.eager()``, held equal, and
+   the routed slots each tick of that eager run dropped over capacity,
    and K3 on the tick that touches most pages at (16, 1, 128) as phase 7
    times it.  Then jamba-v0.1-52b at published width cut to one 8-layer
    period (4 ``mamba_moe`` layers of 16 experts top-2, ffe 14336):
@@ -174,9 +185,36 @@ Phases, in order; any failure exits non-zero before the result line:
    37 K2 calls held against the plain versions.  Last, the deepseek-moe,
    jamba and phi3.5-moe smoke configs in f32 on the card against the
    plain path on the host (as phase 4 ends).
+12. full-width qwen3-32b (64 layers, d 5120, 64/8 heads x 128 with
+   ``qk_norm``, ff 25600, vocab 151936, untied; random weights from seed
+   0) in bf16: ``torch.cuda.max_memory_allocated`` after the init, across
+   the float runs and across the quantization.  One-shot float (graph and
+   eager equal) and one decode step as its own program, and the bf16
+   ``torch.matmul`` of a step's 448 projections as context; then every
+   program that holds the float weights is dropped and the model is
+   quantized in place on packed planes with ``drop_float=True`` (each
+   float leaf freed as its planes exist: 34.3 GB resident after it).
+   One-shot packed with stats, graph and eager equal, K2 launching 448 x
+   32 by census x replays and by the wrappers (K1, K3, K4 none); one
+   packed decode step as its own program beside the bytes bounds of a
+   float and a packed step (from the shapes); all 448 K2 calls of one
+   decode step held against K1's and K2's plain versions on their real
+   activations, then timed by CUDA-graph replay beside their bound and
+   the plain version.  Then phase 7's trace and ``ServeConfig`` with K3,
+   packed planes with stats, as graphs (tok/s, ms per decode step, nodes,
+   ``compile_stats()``, K3 on the tick touching most pages at (8, 8,
+   128) as phase 7 times it), and the model's first ``CUT_LAYERS`` (4)
+   layers over the same trace as graphs and under ``engine.eager()``,
+   held equal (the eager run of the whole trace at 64 layers would take
+   minutes).  Last, the qwen3, qwen2.5 and
+   phi4-mini smoke configs as phase 4 ends, internvl2 through the
+   prefill step and the decode loop and musicgen frame by frame, each in
+   f32 on the card against the host (quantized: every K2 call equal up
+   to the first input that crosses a LOG2 code boundary by float
+   rounding alone).
 
-Prints a ``serving:`` line (graph and eager tok/s of phases 4, 7, 9, 10
-and 11), a ``kernels:`` line, the JSON kernel table and, last, the result
+Prints a ``serving:`` line (graph and eager tok/s of phases 4, 7, 9, 10,
+11 and 12), a ``kernels:`` line, the JSON kernel table and, last, the result
 line ``{"ok": true, "device": {...}}``.  It imports nothing of JAX and
 nothing of the JAX package.
 """
@@ -202,7 +240,19 @@ PHASE3_M = [1, 4, 8, 16, 17, 63, 64, 128, 256]
 PHASE3_SCALES = [1.0, 0.37, 2.0 ** -3]
 MAIN_KN = [(576, 576), (576, 192), (576, 1536), (1536, 576),
            (1536, 3072), (3072, 1536),      # smollm-135m, mamba2-780m
-           (2048, 2048), (2048, 2816), (2816, 2048)]    # deepseek-moe-16b
+           (2048, 2048), (2048, 2816), (2816, 2048),    # deepseek-moe-16b
+           (5120, 8192), (5120, 1024), (8192, 5120),    # qwen3-32b
+           (5120, 25600), (25600, 5120)]
+# the other dense configurations' projection shapes, held at M 4 and 128,
+# bf16, n_bits 4: qwen2.5-14b, phi4-mini-3.8b, internvl2-26b,
+# musicgen-medium
+OTHER_KN = [(5120, 5120), (5120, 13824), (13824, 5120),
+            (3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072),
+            (6144, 6144), (6144, 1024), (6144, 16384), (16384, 6144),
+            (1536, 1536), (1536, 6144), (6144, 1536)]
+# the direct-shift oracle builds (rows, K, N) int32 temporaries: above
+# this many weights it runs on the cases of at most 16 rows
+ORACLE_MAX_KN = 1 << 24
 BATCH, PROMPT, NEW = 4, 64, 32
 PROJ = ["wq", "wk", "wv", "wo", "gate", "up", "down"]
 MAMBA_PROJ = ["wz", "wx", "out_proj"]
@@ -215,12 +265,16 @@ SERVE = dict(max_slots=8, max_len=512, buckets=(16, 32, 64, 128),
 SERVE_NEW = 32
 KV_BITS = 4
 F32_LAYERS = 4                      # depth of phases 7 and 9's f32 runs
+CUT_LAYERS = 4                      # depth of phases 10-12 eager runs
 # phases 6 and 8 at the serving path's geometry (page_len 16, 32 table
 # columns): rows long enough that every warp of a block walks several
-# pages, at smollm-135m's (G, R, D), at D = 128 and R = 8, and at
-# deepseek-moe-16b's and jamba-v0.1-52b's
+# pages, at smollm-135m's (G, R, D), at D = 128 and R = 8, at
+# deepseek-moe-16b's and jamba-v0.1-52b's, and at qwen3-32b's (8, 8, 128),
+# qwen2.5-14b's (8, 5, 128), phi4-mini's (8, 3, 128), internvl2-26b's
+# (8, 6, 128) and musicgen-medium's (24, 1, 64)
 LONG_LENGTHS = [512, 300, 64, 33, 17, 16, 1, 0]
-LONG_GEOS = [(3, 3, 64), (3, 3, 128), (1, 8, 64), (16, 1, 128), (8, 4, 128)]
+LONG_GEOS = [(3, 3, 64), (3, 3, 128), (1, 8, 64), (16, 1, 128), (8, 4, 128),
+             (8, 8, 128), (8, 5, 128), (8, 3, 128), (8, 6, 128), (24, 1, 64)]
 
 
 def fail(msg: str) -> None:
@@ -281,9 +335,11 @@ def graph_ms(torch, fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def eager_ms(torch, fn, reps: int = 5) -> float:
-    """Time of ``fn`` issued from the host as the eager path issues it."""
-    fn()
+def eager_ms(torch, fn, reps: int = 5, warm: bool = True) -> float:
+    """Time of ``fn`` issued from the host as the eager path issues it
+    (after one unmeasured call unless ``warm`` is False)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -517,6 +573,11 @@ def main() -> None:
     # -- phase 5: kernel times at the decode, chunk and prefill shapes -----
     t = phase5(torch, dev, g, card, cfg, params, ctx.capture, step_calls,
                prefill_calls, l2_ops, bm_ops, args.parent)
+    # phase 4's models and records are not read again (phase 12 needs
+    # the card's memory)
+    del params, qparams, pparams, p, call, prog, entry, caches, logits
+    del step_logits, ctx, step_calls, prefill_calls, xs, exp, sign, planes, y
+    gc_cuda(torch)
     # the same for K2 at mamba2-780m's shapes, on phase 10's model
     mamba = mamba_model(torch, dev, bm_ops)
     t_mamba = phase5_mamba(torch, dev, card, mamba, bm_ops)
@@ -546,13 +607,17 @@ def main() -> None:
     # -- phase 11: full-width deepseek-moe-16b, one jamba period ----------
     m11 = phase11(torch, dev, card, l2_ops, bm_ops, pa_ops)
     print(f"  (phase 11 done at {time.perf_counter() - t_main:.0f} s)")
+
+    # -- phase 12: full-width qwen3-32b, float then packed planes alone ----
+    m12 = phase12(torch, dev, card, l2_ops, bm_ops, pa_ops)
+    print(f"  (phase 12 done at {time.perf_counter() - t_main:.0f} s)")
     serving = {"phase4": {tag: {
         "graph_tok_s": BATCH * NEW / r["t_graph"],
         "eager_tok_s": BATCH * NEW / r["t_eager"],
         "capture_ms": r["capture_ms"]} for tag, r in gen_runs.items()},
         "phase7": k3["serve"], "phase9": k4["serve"],
         "phase10": m10["serve"], "phase11": m11["serve"],
-        "phase11_jamba": m11["jamba"]}
+        "phase11_jamba": m11["jamba"], "phase12": m12["serve"]}
     print(f"serving ({card}): {json.dumps(serving)}")
 
     table = []
@@ -574,6 +639,10 @@ def main() -> None:
             # times at its decode step
             entry["deepseek_moe_16b"] = {"launches": m11["k2_launches"],
                                          **m11["k2"]}
+            # the dense path at full width: qwen3-32b on packed planes
+            # alone (phase 12)
+            entry["qwen3_32b"] = {"launches": m12["k2_launches"],
+                                  **m12["k2"]}
         table.append(entry)
     table.append({
         "name": "paged_attention", "route": "cuda",
@@ -584,7 +653,8 @@ def main() -> None:
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
         "scope": k3["scope"], "eager_ms": k3["eager_ms"],
-        "deepseek_moe_16b": {"launches": m11["k3_launches"], **m11["k3"]}})
+        "deepseek_moe_16b": {"launches": m11["k3_launches"], **m11["k3"]},
+        "qwen3_32b": {"launches": m12["k3_launches"], **m12["k3"]}})
     table.append({
         "name": "paged_attention_quant", "route": "cuda",
         "source": "src/repro_torch/kernels/paged_attention/csrc/"
@@ -697,8 +767,10 @@ def phase3(torch, dev, g, bm_ops) -> int:
         a = torch.tensor(act, dtype=torch.float32, device=dev)
         q = log2_quantize(x.float() / a, n_bits)
         plain = shiftadd_matmul_bitplane(q, layouts["unpacked"], n_bits)
+        m, k = x.shape
+        small = k * w.shape[1] <= ORACLE_MAX_KN or m <= 16
         oracle = (bitplane_matmul_ref(q.exp, q.sign, w, n_bits)
-                  if n_bits <= 4 else plain)
+                  if n_bits <= 4 and small else plain)
         bodies = (False, True) if n_bits <= 4 else (False,)
         for lay, planes in layouts.items():
             for tc in bodies:
@@ -727,6 +799,14 @@ def phase3(torch, dev, g, bm_ops) -> int:
         # cold activations: deep negative exponents skip low planes
         fused_case(f"cold {BATCH}x{k}x{n}", torch.randn(
             (BATCH, k), generator=g, device=dev) * 0.02, 1.0, w, layouts, 4)
+        del w, layouts
+    for k, n in OTHER_KN:
+        w, layouts = weights(k, n)
+        for m in (BATCH, 128):
+            x = torch.randn((m, k), generator=g, device=dev).to(
+                torch.bfloat16)
+            fused_case(f"{m}x{k}x{n} bf16", x, 1.0, w, layouts, 4)
+        del w, layouts
     x = torch.cat([torch.randn((32, 64), generator=g, device=dev) * 1e-3,
                    torch.randn((32, 64), generator=g, device=dev) * 100.0,
                    torch.zeros((32, 64), device=dev)], dim=1)
@@ -783,7 +863,9 @@ def phase3(torch, dev, g, bm_ops) -> int:
     print(f"phase 3: fused K2 bit-equal to its plain version and the oracle "
           f"in {stats['cases']} cases ({stats['launches']} launches: MAIN_KN"
           f" x M {PHASE3_M} x f32/bf16 x act_scale {PHASE3_SCALES} x "
-          f"n_bits 2..5, both layouts, both bodies up to 4 bits), its codes "
+          f"n_bits 2..5, both layouts, both bodies up to 4 bits, the oracle "
+          f"on at most 16 rows above {ORACLE_MAX_KN} weights; OTHER_KN x M "
+          f"{[BATCH, 128]} bf16 n_bits 4), its codes "
           f"equal to K1's plain version, the codes entry too, graph replay "
           f"equal to eager ({time.perf_counter() - t0:.1f} s)")
     return stats["err"]
@@ -2541,16 +2623,21 @@ def phase10(torch, dev, card, mb, l2_ops, bm_ops, pa_ops) -> dict:
         snaps["n"] += 1
         return snap(self, i)
 
+    # the whole model as graphs (the measured path), then its first
+    # CUT_LAYERS layers as graphs and under engine.eager(), held equal
+    ccfg, cparams = first_layers(cfg, mb["pparams"], CUT_LAYERS)
+    plan = (("graph", cfg, None), ("cut/graph", ccfg, cparams),
+            ("cut/eager", ccfg, cparams))
     sruns, taken = {}, {}
     ServeScheduler._snap_slot = counting
     try:
-        for mode in ("graph", "eager"):
+        for mode, c, p in plan:
             snaps["n"] = 0
-            with (engine.eager() if mode == "eager"
+            with (engine.eager() if mode.endswith("eager")
                   else contextlib.nullcontext()):
-                sruns[mode] = serve(torch, dev, cfg, trace, quant=True,
+                sruns[mode] = serve(torch, dev, c, trace, quant=True,
                                     kernel=False, stats=True,
-                                    counters=kernels, pack=True)
+                                    counters=kernels, pack=True, params=p)
             taken[mode] = snaps["n"]
     finally:
         ServeScheduler._snap_slot = snap
@@ -2558,21 +2645,24 @@ def phase10(torch, dev, card, mb, l2_ops, bm_ops, pa_ops) -> dict:
         "graph_tok_s": new / r["t_graph"], "eager_tok_s": new / r["t_eager"],
         "capture_ms": r["capture_ms"]} for tag, r in runs.items()},
         "decode_step": steps, "step_bytes": sb}
-    for mode in ("graph", "eager"):
+    for mode, c, _ in plan:
         res, sched, fwd, wall, run = sruns[mode]
-        launches = (run["replayed"] if mode == "graph" else
+        launches = (run["replayed"] if mode.endswith("graph") else
                     {k.__name__: k.launches for k in kernels})
         n_fwd = sum(fwd.values())
-        check(launches["bitplane_matmul"] == per_fwd * n_fwd
+        k2_fwd = c.n_layers * len(MAMBA_PROJ)
+        check(launches["bitplane_matmul"] == k2_fwd * n_fwd
               and launches["log2quant"] == 0
               and launches["paged_attention"] == 0
               and launches["paged_attention_quant"] == 0,
               f"mamba scheduler {mode}: launches {launches}, expected K2 "
-              f"{per_fwd} x {n_fwd} forwards and no other kernel")
-        print(f"  scheduler packed quant+stats, {mode}: forwards {fwd}; "
-              f"launches {launches}; snapshots taken {taken[mode]}")
+              f"{k2_fwd} x {n_fwd} forwards and no other kernel")
+        print(f"  scheduler packed quant+stats, {mode} ({c.n_layers} "
+              f"layers): forwards {fwd}; launches {launches}; snapshots "
+              f"taken {taken[mode]}")
         serve_out[f"scheduler/{mode}"] = tok_s(
-            f"mamba packed quant+stats {mode}", res, wall, run, sched)
+            f"mamba packed quant+stats {mode} ({c.n_layers} layers)", res,
+            wall, run, sched)
         st = sched.prefix_cache_stats()
         serve_out[f"scheduler/{mode}"].update(
             hit_rate=st["hit_rate"], snapshots=taken[mode])
@@ -2603,12 +2693,17 @@ def phase10(torch, dev, card, mb, l2_ops, bm_ops, pa_ops) -> dict:
                   f"{sched._radix._n_snapshots}")
             tile_r = sum(r.plane_traffic_fraction for r in res) / len(res)
             check(0 < tile_r <= 1, f"mamba traffic fraction {tile_r}")
-    held_equal("mamba packed quant+stats", sruns["graph"], sruns["eager"])
-    print(f"  the graph run equals its engine.eager() run in tokens, "
-          f"per-request stats, forwards and every tick's page table; decode "
-          f"step {serve_out['scheduler/eager']['step_ms']:.3f} ms eager -> "
-          f"{serve_out['scheduler/graph']['step_ms']:.3f} ms graph (host "
-          f"clock)")
+    check(taken["cut/graph"] == taken["cut/eager"],
+          f"mamba snapshots: {taken}")
+    held_equal(f"mamba packed quant+stats, {CUT_LAYERS} layers",
+               sruns["cut/graph"], sruns["cut/eager"])
+    print(f"  at the first {CUT_LAYERS} of {cfg.n_layers} layers the graph "
+          f"run equals its engine.eager() run in tokens, per-request stats, "
+          f"forwards, snapshots and every tick's page table; decode step "
+          f"{serve_out['scheduler/cut/eager']['step_ms']:.3f} ms eager -> "
+          f"{serve_out['scheduler/cut/graph']['step_ms']:.3f} ms graph there "
+          f"(host clock)")
+    del sruns
 
     # -- three requests sharing a 64-token prefix: 2 snapshot hits --------
     gen = torch.Generator().manual_seed(11)
@@ -2852,17 +2947,23 @@ def deepseek_full(torch, dev, card, kernels, bm_ops, pa_ops) -> dict:
         drops.append(int(sum(dropped)))
         dropped.clear()
 
+    # the whole model as graphs (the measured path), then its first
+    # CUT_LAYERS layers as graphs and under engine.eager(), held equal
+    ccfg, cparams = first_layers(cfg, pparams, CUT_LAYERS)
+    plan = (("graph", cfg, pparams), ("cut/graph", ccfg, cparams),
+            ("cut/eager", ccfg, cparams))
     sruns = {}
-    for mode in ("graph", "eager"):
-        if mode == "eager":
+    for mode, c, p in plan:
+        eager = mode.endswith("eager")
+        if eager:
             moe._dispatch_tables = counting
         try:
-            with (engine.eager() if mode == "eager"
-                  else contextlib.nullcontext()):
+            with engine.eager() if eager else contextlib.nullcontext():
                 sruns[mode] = serve(
-                    torch, dev, cfg, trace, quant=True, kernel=True,
-                    stats=True, counters=kernels, params=pparams,
-                    on_tick=on_tick if mode == "graph" else count_drops)
+                    torch, dev, c, trace, quant=True, kernel=True,
+                    stats=True, counters=kernels, params=p,
+                    on_tick=(on_tick if mode == "graph" else
+                             count_drops if eager else None))
         finally:
             moe._dispatch_tables = tables
     serve_out = {"one_shot": {tag: {
@@ -2873,22 +2974,24 @@ def deepseek_full(torch, dev, card, kernels, bm_ops, pa_ops) -> dict:
         "step_bytes": sb}
     out = {"serve": serve_out, "k2": k2t,
            "k2_launches": runs["packed+stats"]["replayed"]["bitplane_matmul"]}
-    for mode in ("graph", "eager"):
+    for mode, c, _ in plan:
         res, sched, fwd, wall, run = sruns[mode]
-        launches = (run["replayed"] if mode == "graph" else
+        launches = (run["replayed"] if mode.endswith("graph") else
                     {k.__name__: k.launches for k in kernels})
         n_fwd = sum(fwd.values())
-        check(launches["bitplane_matmul"] == per_fwd * n_fwd
-              and launches["paged_attention"] == cfg.n_layers * fwd["decode"]
+        k2_fwd = c.n_layers * len(PROJ)
+        check(launches["bitplane_matmul"] == k2_fwd * n_fwd
+              and launches["paged_attention"] == c.n_layers * fwd["decode"]
               and launches["log2quant"] == 0
               and launches["paged_attention_quant"] == 0,
               f"deepseek scheduler {mode}: launches {launches}, expected K2 "
-              f"{per_fwd} x {n_fwd} forwards, K3 {cfg.n_layers} x "
+              f"{k2_fwd} x {n_fwd} forwards, K3 {c.n_layers} x "
               f"{fwd['decode']} decode forwards, no K1 or K4")
-        print(f"  scheduler K3 packed+stats, {mode}: forwards {fwd}; "
-              f"launches {launches}")
+        print(f"  scheduler K3 packed+stats, {mode} ({c.n_layers} layers): "
+              f"forwards {fwd}; launches {launches}")
         serve_out[f"scheduler/{mode}"] = tok_s(
-            f"deepseek packed+stats {mode}", res, wall, run, sched)
+            f"deepseek packed+stats {mode} ({c.n_layers} layers)", res, wall,
+            run, sched)
         if mode == "graph":
             out["k3_launches"] = launches["paged_attention"]
             program_report(sched, "deepseek packed+stats graph")
@@ -2912,7 +3015,9 @@ def deepseek_full(torch, dev, card, kernels, bm_ops, pa_ops) -> dict:
                   f"cache hit_rate {st['hit_rate']:.6f}")
             tile_r = sum(r.plane_traffic_fraction for r in res) / len(res)
             check(0 < tile_r <= 1, f"deepseek traffic fraction {tile_r}")
-    held_equal("deepseek packed+stats", sruns["graph"], sruns["eager"])
+    held_equal(f"deepseek packed+stats, {CUT_LAYERS} layers",
+               sruns["cut/graph"], sruns["cut/eager"])
+    del sruns
     worst = max(range(len(drops)), key=drops.__getitem__)
     check(drops[worst] > 0, "deepseek: no tick dropped a routed slot")
     cap8 = min(int(SERVE["max_slots"] * cfg.experts_per_token
@@ -2922,12 +3027,14 @@ def deepseek_full(torch, dev, card, kernels, bm_ops, pa_ops) -> dict:
                                   "total": sum(drops),
                                   "ticks_with_drops": sum(d > 0
                                                           for d in drops),
-                                  "ticks": len(drops)}
+                                  "ticks": len(drops),
+                                  "layers": CUT_LAYERS}
     serve_out["dropped_slots"]["last_tick"] = drops[-1]
-    print(f"  the graph run equals its engine.eager() run in tokens, "
-          f"per-request stats, forwards and every tick's page table; expert "
-          f"capacity drops (eager run, routed slots over capacity, summed "
-          f"over a tick's forwards and layers): tick {worst} dropped "
+    print(f"  at the first {CUT_LAYERS} of {cfg.n_layers} layers the graph "
+          f"run equals its engine.eager() run in tokens, per-request stats, "
+          f"forwards and every tick's page table; expert capacity drops "
+          f"(that eager run, routed slots over capacity, summed over a "
+          f"tick's forwards and {CUT_LAYERS} layers): tick {worst} dropped "
           f"{drops[worst]}, the last tick (decode only) {drops[-1]}; "
           f"{serve_out['dropped_slots']['ticks_with_drops']} of "
           f"{len(drops)} ticks dropped, {sum(drops)} in all (a decode "
@@ -3000,6 +3107,24 @@ def deepseek_step_kernels(torch, dev, cfg, params, pparams, prompt, bm_ops,
     return k2t
 
 
+def first_layers(cfg, params, n: int):
+    """``cfg`` cut to its first ``n`` layers (whole periods) and views of
+    ``params``' stacked leaves to match (no copy): the depth at which
+    phases 10, 11 and 12 hold their scheduler's graphs against eager
+    runs."""
+    cut = cfg.replace(n_layers=n)
+    r = cut.repeats
+
+    def view(tree):
+        if isinstance(tree, dict):
+            return {k: view(v) for k, v in tree.items()}
+        if hasattr(tree, "_fields"):
+            return type(tree)(*(None if t is None else t[:r] for t in tree))
+        return tree[:r]
+
+    return cut, dict(params, blocks=tuple(view(b) for b in params["blocks"]))
+
+
 def gc_cuda(torch) -> None:
     """Free what the dropped references held on the card (the one-shot
     programs' graphs too)."""
@@ -3052,6 +3177,437 @@ def jamba_period(torch, dev, card, kernels, bm_ops) -> dict:
             "eager_tok_s": BATCH * NEW / r["t_eager"],
             "capture_ms": r["capture_ms"]} for tag, r in runs.items()}}
     return out
+
+
+def dense_step_bytes(cfg, batch: int, kv_len: int,
+                     tile_fraction: float) -> dict:
+    """Bytes one decode step of ``batch`` rows at ``kv_len`` cached tokens
+    moves on a dense attention model, from its shapes: each projection
+    weight (bf16) or packed plane byte read once, ``lm_head``, the norms,
+    the KV cache read and one row written.  ``planes_read_packed`` scales
+    the packed planes by the step's tile-granular traffic fraction."""
+    d, el, layers = cfg.d_model, 2, cfg.n_layers
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    qproj = d * h * hd + 2 * d * hkv * hd + h * hd * d + 3 * d * cfg.d_ff
+    out = {
+        "float_projections": layers * qproj * el,
+        "planes_packed": layers * qproj,
+        "planes_read_packed": layers * qproj * tile_fraction,
+        "norms": layers * (2 * d + 2 * hd) * el + d * el,
+        "lm_head": cfg.vocab_size * d * el,
+        "kv": batch * layers * (kv_len + 1) * 2 * hkv * hd * el,
+    }
+    rest = out["norms"] + out["lm_head"] + out["kv"]
+    out["step_float"] = out["float_projections"] + rest
+    out["step_packed"] = out["planes_packed"] + rest
+    out["qeihan_share_packed"] = out["planes_packed"] / out["step_packed"]
+    for key in ("step_float", "step_packed"):
+        out[key.replace("step", "bound_ms")] = (out[key] / HBM_BYTES_PER_S
+                                                * 1e3)
+    return out
+
+
+def phase12(torch, dev, card, l2_ops, bm_ops, pa_ops) -> dict:
+    """qwen3-32b at full width and depth: one-shot and one decode step in
+    float; every program dropped, then quantized on packed planes in
+    place with ``drop_float``; one-shot packed with stats and one decode
+    step packed; K2 on a decode step's real activations; the scheduler
+    with K3.  Then the other new smoke configs against the host."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params, param_count
+    from repro_torch.models.quantize import quantize_model_params
+
+    t_phase = time.perf_counter()
+    kernels = (l2_ops.log2quant, bm_ops.bitplane_matmul,
+               pa_ops.paged_attention, pa_ops.paged_attention_quant)
+    cfg = get_config("qwen3-32b")
+    gc_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, generator=gen, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    gb = 1e9
+    mem = {"init_peak_gb": torch.cuda.max_memory_allocated() / gb,
+           "float_gb": torch.cuda.memory_allocated() / gb}
+    names = quant_names(cfg)
+    per_fwd = len(names)
+    check(per_fwd == cfg.n_layers * len(PROJ), f"qwen3: {per_fwd} quantized "
+          f"projections a forward")
+    pc = param_count(cfg)
+    print(f"phase 12: {cfg.name} full width and depth, {cfg.n_layers}L "
+          f"d={cfg.d_model} {cfg.n_heads}H/{cfg.n_kv_heads}kv x "
+          f"{cfg.head_dim}, ff {cfg.d_ff}, vocab {cfg.vocab_size}, untied, "
+          f"qk_norm, {cfg.dtype}, seed 0: {pc['total'] / 1e9:.3f} B "
+          f"parameters, built in {time.perf_counter() - t_phase:.1f} s, "
+          f"{mem['float_gb']:.2f} GB on the card (peak "
+          f"{mem['init_peak_gb']:.2f}); on {card}")
+
+    # -- float: one-shot, one decode step, the matmul context -------------
+    runs = one_shot(torch, dev, cfg, prompt, (
+        ("float", params, False, False),), kernels, per_fwd, "qwen3")
+    steps = step_programs(torch, dev, cfg, prompt, (
+        ("float", params, False),), per_fwd)
+    blk = params["blocks"][0]
+    weights = [blk[p] for p in PROJ[:4]] + [blk["mlp"][p] for p in PROJ[4:]]
+    acts = [torch.randn((BATCH, w.shape[1]), device=dev,
+                        dtype=torch.bfloat16) for w in weights]
+
+    def matmul_step():
+        for r in range(cfg.n_layers):
+            for a, w in zip(acts, weights):
+                torch.matmul(a, w[r])
+
+    context_ms = graph_ms(torch, matmul_step, reps=5)
+    del blk, weights, acts
+    mem["float_runs_peak_gb"] = torch.cuda.max_memory_allocated() / gb
+
+    # -- drop every program that holds the float leaves, then quantize in
+    # place: each float leaf is freed as soon as its planes exist -------
+    gc_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pparams = quantize_model_params(cfg, params, pack=True, drop_float=True)
+    torch.cuda.synchronize()
+    mem["quantize_s"] = time.perf_counter() - t0
+    mem["quantize_peak_gb"] = torch.cuda.max_memory_allocated() / gb
+    gc_cuda(torch)
+    mem["packed_gb"] = torch.cuda.memory_allocated() / gb
+    for tree in (params, pparams):
+        b0 = tree["blocks"][0]
+        for leaf in [b0[p] for p in PROJ[:4]] + [b0["mlp"][p]
+                                                 for p in PROJ[4:]]:
+            check(tuple(leaf.shape) == (cfg.repeats, 1),
+                  f"qwen3: a float projection survived drop_float: "
+                  f"{tuple(leaf.shape)}")
+    print(f"  memory: {mem['float_gb']:.2f} GB after the init (peak "
+          f"{mem['init_peak_gb']:.2f}), float runs peak "
+          f"{mem['float_runs_peak_gb']:.2f}; in-place drop_float "
+          f"quantization on packed planes in {mem['quantize_s']:.1f} s, peak "
+          f"{mem['quantize_peak_gb']:.2f} GB; {mem['packed_gb']:.2f} GB "
+          f"resident after it (torch.cuda.max_memory_allocated)")
+
+    # -- packed planes alone: one-shot with stats, one decode step ---------
+    runs.update(one_shot(torch, dev, cfg, prompt, (
+        ("packed+stats", pparams, True, True),), kernels, per_fwd, "qwen3"))
+    tile = runs["packed+stats"]["stats"]["plane_traffic_fraction"].cpu()
+    elem = runs["packed+stats"]["stats"]["element_traffic_fraction"].cpu()
+    check(bool((tile[:-1] > 0).all() and (tile[:-1] <= 1).all()
+               and (elem[:-1] > 0).all() and (elem <= tile + 1e-6).all()
+               and tile[-1] == 0), f"qwen3: bad traffic stats {tile} {elem}")
+    print(f"  K2 = {cfg.n_layers} layers x {len(PROJ)} projections x {NEW} "
+          f"forwards = {per_fwd * NEW} launches per quantized run, by census "
+          f"x replays and by the wrappers in the eager run; K1, K3, K4 0; "
+          f"plane traffic per decode step: tile {float(tile[:-1].mean()):.6f}"
+          f", element {float(elem[:-1].mean()):.6f}")
+    steps.update(step_programs(torch, dev, cfg, prompt, (
+        ("packed", pparams, True),), per_fwd))
+    sb = dense_step_bytes(cfg, BATCH, PROMPT + NEW // 2,
+                          float(tile[:-1].mean()))
+    print(f"  bytes per decode step at batch {BATCH} (from the shapes, KV at "
+          f"{PROMPT + NEW // 2} tokens): projections float "
+          f"{sb['float_projections'] / 1e9:.4f} GB, packed planes "
+          f"{sb['planes_packed'] / 1e9:.4f} GB (read by the skip rule "
+          f"{sb['planes_read_packed'] / 1e9:.4f}), lm head "
+          f"{sb['lm_head'] / 1e9:.4f} GB, norms {sb['norms'] / 1e9:.6f} GB, "
+          f"KV {sb['kv'] / 1e9:.4f} GB: a float step "
+          f"{sb['step_float'] / 1e9:.4f} GB (bound {sb['bound_ms_float']:.3f}"
+          f" ms), a packed step {sb['step_packed'] / 1e9:.4f} GB (bound "
+          f"{sb['bound_ms_packed']:.3f} ms), QeiHaN's planes "
+          f"{sb['qeihan_share_packed']:.4f} of it; measured "
+          f"{steps['float']['replay_ms']:.4f} ms float, "
+          f"{steps['packed']['replay_ms']:.4f} ms packed (device, {card}); "
+          f"bf16 torch.matmul of the step's 448 projections alone "
+          f"{context_ms:.4f} ms")
+
+    # -- K2 on one decode step's real activations --------------------------
+    k2t = qwen3_step_k2(torch, dev, cfg, pparams, prompt, bm_ops, names)
+    k2t["context_matmul_ms"] = context_ms
+    gc_cuda(torch)
+
+    # -- the scheduler: phase 7's trace, K3, packed planes with stats -----
+    sched_out, k3 = qwen3_scheduler(torch, dev, card, cfg, pparams, kernels,
+                                    pa_ops)
+    serve_out = {"one_shot": {tag: {
+        "graph_tok_s": BATCH * NEW / r["t_graph"],
+        "eager_tok_s": BATCH * NEW / r["t_eager"],
+        "capture_ms": r["capture_ms"], "nodes": r["nodes"]}
+        for tag, r in runs.items()}, "decode_step": steps,
+        "step_bytes": sb, "memory": mem, **sched_out}
+    out = {"serve": serve_out, "k2": k2t, "k3": k3,
+           "k2_launches": runs["packed+stats"]["replayed"]["bitplane_matmul"],
+           "k3_launches": sched_out["k3_launches"]}
+    del pparams, params
+    gc_cuda(torch)
+
+    # -- the other new configurations' smoke configs against the host -----
+    for name in ("qwen3-32b", "qwen2.5-14b", "phi4-mini-3.8b"):
+        smoke_on_card(torch, dev, name)
+    stubs_on_card(torch, dev)
+    print(f"  (phase 12 took {time.perf_counter() - t_phase:.0f} s)")
+    return out
+
+
+def qwen3_step_k2(torch, dev, cfg, pparams, prompt, bm_ops, names) -> dict:
+    """One quantized prefill and one decode step on packed planes: every
+    K2 call of the step held, as it runs, against K1's and K2's plain
+    versions on its real activations (the planes unpacked one call at a
+    time: unpacked, the step's 448 would take 250 GB); then the step's
+    launches on their recorded inputs timed by CUDA-graph replay beside
+    their bound and the plain version."""
+    from repro_torch.models.model import init_caches
+    from repro_torch.serving import engine
+
+    caches = init_caches(cfg, BATCH, PROMPT + 1, device=dev)
+    logits, caches = engine.make_prefill_step(cfg, True)(
+        pparams, {"tokens": prompt}, caches)
+    calls = []
+    inner = bm_ops.log2_bitplane_matmul
+
+    def held(x, act_scale, planes, n_bits=4, codes=False, **kw):
+        y, q = inner(x, act_scale, planes, n_bits, codes=True, **kw)
+        py, pq = bm_ops.log2_bitplane_matmul_plain(x, act_scale, planes,
+                                                   n_bits)
+        what = f"qwen3 call {len(calls)} ({names[len(calls) % len(names)]})"
+        check(torch.equal(q.exp, pq.exp) and torch.equal(q.sign, pq.sign),
+              f"K2's codes differ from K1's plain version on {what}")
+        check(torch.equal(y, py), f"K2 differs from its plain version on "
+              f"{what}")
+        calls.append((x.clone(), act_scale, planes, n_bits, q.exp))
+        return (y, q) if codes else y
+
+    bm_ops.log2_bitplane_matmul = held
+    try:
+        step_logits, _ = engine.make_serve_step(cfg, True)(
+            pparams, caches, torch.argmax(logits, -1).to(torch.int32)[:, None])
+    finally:
+        bm_ops.log2_bitplane_matmul = inner
+    check(len(calls) == len(names), f"qwen3: {len(calls)} K2 calls in a "
+          f"decode step, expected {len(names)}")
+    check(bool(torch.isfinite(logits.float()).all()
+               and torch.isfinite(step_logits.float()).all()),
+          "qwen3: non-finite logits")
+    torch.cuda.synchronize()
+    print(f"  qwen3: one decode step's {len(calls)} K2 launches (M = {BATCH}"
+          f", packed planes) bit-equal to K1's and K2's plain versions on "
+          f"their real activations")
+
+    def k2_step():
+        for x, a, planes, nb, _ in calls:
+            bm_ops.log2_bitplane_matmul(x, a, planes, nb)
+
+    def plain_step():
+        for x, a, planes, nb, _ in calls:
+            bm_ops.log2_bitplane_matmul_plain(x, a, planes, nb)
+
+    nbytes = nops = 0.0
+    for x, _, planes, _, exp in calls:
+        b, _ = k2_bound(torch, bm_ops, exp, planes.shape[2], True,
+                        x.element_size())
+        nbytes += b
+        nops += 2 * x.shape[0] * x.shape[1] * planes.shape[2]
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT32_OPS_PER_S * 1e3
+    k2t = {"ms": graph_ms(torch, k2_step), "plain_ms": eager_ms(
+        torch, plain_step, reps=1, warm=False), "bound_ms": max(t_b, t_o),
+        "bound_by": "bytes" if t_b >= t_o else "operations",
+        "library_ms": None, "bound_bytes": nbytes,
+        "scope": f"one qwen3-32b decode step: {len(calls)} launches "
+                 f"({cfg.n_layers} layers x wq wk wv wo gate up down), "
+                 f"M={BATCH}, packed planes"}
+    print(f"  K2 on that step, packed planes, CUDA-graph replay: "
+          f"{k2t['ms']:.4f} ms against its bound {k2t['bound_ms']:.4f} ms "
+          f"({k2t['bound_by']}: {nbytes / 1e9:.4f} GB of the tiles the skip "
+          f"rule reads, x and the outputs); plain version "
+          f"{k2t['plain_ms']:.4f} ms")
+    return k2t
+
+
+def qwen3_scheduler(torch, dev, card, cfg, pparams, kernels, pa_ops):
+    """Phase 7's trace and ``ServeConfig`` with K3 on packed planes with
+    stats, as graphs (tok/s, ms a step, nodes, ``compile_stats()``, K3 on
+    the tick touching most pages); then the model's first ``CUT_LAYERS``
+    layers over the same trace as graphs and under ``engine.eager()``,
+    held equal (the eager run of the whole trace would take minutes at 64
+    layers)."""
+    from repro_torch.serving import engine
+
+    trace = serve_trace(cfg.vocab_size)
+    best, on_tick = most_pages(torch, dev)
+    out = {}
+
+    def launches_ok(label, c, run, fwd, mode):
+        launches = (run["replayed"] if mode == "graph" else
+                    {k.__name__: k.launches for k in kernels})
+        n_fwd = sum(fwd.values())
+        k2_fwd = c.n_layers * len(PROJ)
+        check(launches["bitplane_matmul"] == k2_fwd * n_fwd
+              and launches["paged_attention"] == c.n_layers * fwd["decode"]
+              and launches["log2quant"] == 0
+              and launches["paged_attention_quant"] == 0,
+              f"{label}: launches {launches}, expected K2 {k2_fwd} x "
+              f"{n_fwd} forwards, K3 {c.n_layers} x {fwd['decode']} decode "
+              f"forwards, no K1 or K4")
+        print(f"  {label}: forwards {fwd}; launches {launches}")
+        return launches
+
+    res, sched, fwd, wall, run = serve(
+        torch, dev, cfg, trace, quant=True, kernel=True, stats=True,
+        counters=kernels, params=pparams, on_tick=on_tick)
+    launches = launches_ok("qwen3 scheduler K3 packed+stats, graph", cfg,
+                           run, fwd, "graph")
+    out["k3_launches"] = launches["paged_attention"]
+    out["scheduler/graph"] = tok_s("qwen3 packed+stats graph", res, wall,
+                                   run, sched)
+    program_report(sched, "qwen3 packed+stats graph")
+    rep = tick_replay_ms(torch, sched)
+    (tick,) = sched.programs()["tick"].entries()
+    nodes = engine.graph_nodes(tick)
+    per_step = rep / sched.tick_steps
+    st = sched.prefix_cache_stats()
+    out["scheduler/graph"].update(
+        replay_step_ms=per_step, compile_stats=sched.compile_stats(),
+        nodes_per_step=nodes[0] / sched.tick_steps if nodes else None,
+        hit_rate=st["hit_rate"])
+    print(f"    tick graph replayed alone: {rep:.3f} ms device time = "
+          f"{per_step:.3f} ms per decode step of {sched.max_slots} slots "
+          f"(CUDA events, {card}); "
+          + (f"{nodes[0] / sched.tick_steps:.0f} kernel nodes per step; "
+             if nodes else "")
+          + f"host ms per decode step {out['scheduler/graph']['step_ms']:.3f}"
+          f"; prefix cache hit_rate {st['hit_rate']:.6f}")
+    tile_r = sum(r.plane_traffic_fraction for r in res) / len(res)
+    check(0 < tile_r <= 1, f"qwen3 traffic fraction {tile_r}")
+    del res, sched, run, tick
+    gc_cuda(torch)
+    k3 = k3_tick(torch, dev, card, cfg, pa_ops, best)
+    del best
+    gc_cuda(torch)
+
+    # the model's first CUT_LAYERS layers over the same trace as graphs
+    # and under engine.eager(), held equal
+    ccfg, cparams = first_layers(cfg, pparams, CUT_LAYERS)
+    sruns = {}
+    for mode in ("graph", "eager"):
+        with (engine.eager() if mode == "eager"
+              else contextlib.nullcontext()):
+            sruns[mode] = serve(torch, dev, ccfg, trace, quant=True,
+                                kernel=True, stats=True, counters=kernels,
+                                params=cparams)
+        res, sched, fwd, wall, run = sruns[mode]
+        launches_ok(f"qwen3 scheduler, {CUT_LAYERS} layers, {mode}", ccfg,
+                    run, fwd, mode)
+        out[f"scheduler/cut/{mode}"] = tok_s(
+            f"qwen3 packed+stats {mode} ({CUT_LAYERS} layers)", res, wall,
+            run, sched)
+    held_equal(f"qwen3 packed+stats, {CUT_LAYERS} layers", sruns["graph"],
+               sruns["eager"])
+    print(f"  at the first {CUT_LAYERS} of {cfg.n_layers} layers the graph "
+          f"run equals its engine.eager() run in tokens, per-request stats, "
+          f"forwards and every tick's page table")
+    del sruns
+    gc_cuda(torch)
+    return out, k3
+
+
+def stubs_on_card(torch, dev) -> None:
+    """The frontend stubs' smoke configs in f32 (weights from seed 5,
+    quantized on unpacked planes) on the card against the plain path on
+    the host: internvl2 through ``make_prefill_step`` over tokens and patch
+    embeddings and ``make_decode_loop`` (a cache of n_image_tokens +
+    prompt + new rows), musicgen frame by frame through
+    ``make_serve_step``.  Float: tokens equal, logits within 1e-4.
+    Quantized: every K2 call of the run, in order, takes the host's codes
+    and gives its int32 output until the first call whose input crosses a
+    LOG2 code boundary between the host's and the card's float rounding
+    (cuBLAS and ATen's CPU kernels sum in other orders); such a call is
+    allowed only where every differing code sits on an input that differs
+    in its last bits, and the runs are not compared after it; without one,
+    tokens equal and logits within 1e-4."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.shiftadd import QuantCtx
+    from repro_torch.models.model import init_caches, init_params
+    from repro_torch.models.quantize import quantize_model_params
+    from repro_torch.serving import engine
+
+    for name in ("internvl2-26b", "musicgen-medium"):
+        scfg = get_smoke(name).replace(dtype=torch.float32)
+        sq_cpu = quantize_model_params(scfg, init_params(
+            scfg, generator=torch.Generator().manual_seed(5), device="cpu"))
+        sq_gpu = _to(torch, sq_cpu, dev)
+        g = torch.Generator().manual_seed(6)
+        toks = torch.randint(0, scfg.vocab_size, (2, 8), generator=g,
+                             dtype=torch.int32)
+        img = torch.randn((2, scfg.n_image_tokens, scfg.d_model),
+                          generator=g)
+        frames = torch.randn((8, 2, 1, scfg.d_model), generator=g)
+        for quant in (False, True):
+            got = []
+            for p, d in ((sq_cpu, torch.device("cpu")), (sq_gpu, dev)):
+                q = QuantCtx(capture=[]) if quant else False
+                if scfg.frontend == "vision_stub":
+                    caches = init_caches(scfg, 2, scfg.n_image_tokens + 16,
+                                         device=d)
+                    logits, caches = engine.make_prefill_step(scfg, q)(
+                        p, {"tokens": toks.to(d), "image_embeds": img.to(d)},
+                        caches)
+                    out, _ = engine.make_decode_loop(scfg, 8, quant=q)(
+                        p, caches, logits)
+                else:
+                    caches = init_caches(scfg, 2, 8, device=d)
+                    step = engine.make_serve_step(scfg, q)
+                    lg = []
+                    for f in frames:
+                        step_logits, caches = step(p, caches, f.to(d))
+                        lg.append(step_logits)
+                    logits = torch.stack(lg, 1)
+                    out = torch.argmax(logits, -1)
+                caps = [] if not quant else [
+                    tuple(t.cpu() for t in c) for c in q.capture]
+                got.append((out.cpu(), logits.cpu(), caps))
+            (ta, la, ca), (tb, lb, cb) = got
+            flip = first_flip(torch, ca, cb, f"{scfg.name} quantized")
+            err = float((la - lb).abs().max())
+            if flip is None:
+                check(torch.equal(ta, tb) and err <= 1e-4,
+                      f"{scfg.name} (quant={quant}) on the card differs from "
+                      f"the host's plain path: tokens equal "
+                      f"{torch.equal(ta, tb)}, logits max |diff| {err}")
+                print(f"  {scfg.name} f32 (quant={quant}): tokens equal the "
+                      f"host's plain path, logits max |diff| {err:.2e}" +
+                      (f"; all {len(ca)} K2 calls took the host's codes and "
+                       f"gave its outputs" if quant else ""))
+            else:
+                i, n, rel = flip
+                print(f"  {scfg.name} f32 (quant=True): K2 calls 0..{i - 1} "
+                      f"of {len(ca)} took the host's codes and gave its "
+                      f"outputs; call {i}'s input crosses a LOG2 code "
+                      f"boundary at {n} element(s) whose host and card "
+                      f"values differ by float rounding (relative "
+                      f"{rel:.1e}), so the runs part there (logits max "
+                      f"|diff| {err:.2e}, tokens equal {torch.equal(ta, tb)})")
+
+
+def first_flip(torch, ca, cb, label):
+    """Walk two ``QuantCtx`` captures of one run (host, card) in call
+    order: codes and int32 outputs equal until the first call whose codes
+    differ; there every differing code must sit on an input that differs
+    by float rounding alone (relative 1e-5).  Returns ``(call, codes,
+    relative difference)`` of that call, or None."""
+    check(len(ca) == len(cb), f"{label}: {len(ca)} K2 calls on the host, "
+          f"{len(cb)} on the card")
+    for i, (a, b) in enumerate(zip(ca, cb)):
+        diff = (a[1] != b[1]) | (a[2] != b[2])
+        if bool(diff.any()):
+            xa, xb = a[0][diff], b[0][diff]
+            rel = float(((xa - xb).abs() / xa.abs().clamp(min=1e-30)).max())
+            check(bool((xa != xb).all()) and rel <= 1e-5,
+                  f"{label} call {i}: codes differ on inputs that differ by "
+                  f"{rel} (relative)")
+            return i, int(diff.sum()), rel
+        check(torch.equal(a[4], b[4]), f"{label} call {i}: equal codes, "
+              f"different int32 outputs")
+    return None
 
 
 def _to(torch, tree, dev):

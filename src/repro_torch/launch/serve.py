@@ -22,10 +22,17 @@ package's::
         [--prefix-cache] [--attn-kernel] [--attn-splits N] [--quant] \
         [--kv-quant [BITS]] [--config serve.json] [--dump-config [PATH]]
 
-``--arch`` takes every configuration of ``repro_torch.configs`` (smollm-135m,
-mamba2-780m, deepseek-moe-16b, jamba-v0.1-52b, phi3.5-moe-42b);
-``--kv-quant`` on a model without an attention layer (``attn`` or
-``attn_moe``) is refused, as its pool holds recurrent state only.
+``--arch`` takes every configuration of ``repro_torch.configs`` (the
+reference's ten); ``--kv-quant`` on a model without an attention layer
+(``attn`` or ``attn_moe``) is refused, as its pool holds recurrent state
+only.  A vision-stub model (internvl2-26b) serves one-shot from a random
+prompt and random patch embeddings: the prefill step and the decode loop
+each as one program, over a cache of ``n_image_tokens + prompt_len +
+new_tokens`` rows, the patches' rows included.  The audio stub
+(musicgen-medium) is refused, as in the reference, and so is the
+scheduler for either stub.  There is no flag for ``drop_float``, as in
+the reference: the float weights and the planes of a quantized model are
+both resident (qwen3-32b's do not fit one card together).
 
 The device defaults to the card, where every serving step runs as a
 CUDA-graph replay (its first call captures it: the one-shot mode times a
@@ -45,9 +52,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke
-from repro_torch.models.model import base_kind, init_params
+from repro_torch.models.model import base_kind, init_caches, init_params
 from repro_torch.models.quantize import quantize_model_params
-from repro_torch.serving.engine import greedy_generate
+from repro_torch.serving.engine import (Program, greedy_generate,
+                                        make_decode_loop, make_prefill_step)
 
 
 def _sync(dev: torch.device) -> None:
@@ -175,6 +183,47 @@ def _serve_continuous(cfg, params, args, dev):
     return results
 
 
+def _vision_generate(cfg, params, prompt, img, args, dev):
+    """The vision stub's one-shot serving: ``make_prefill_step`` over
+    ``{"tokens", "image_embeds"}`` and ``make_decode_loop`` over its
+    cache, each one :class:`Program`.  The cache holds the patches' rows
+    too (``n_image_tokens + prompt_len + new_tokens``): the reference's
+    CLI sizes it without them.  Returns a function that runs both and
+    gives ``(tokens, stats or None)``."""
+    b, n = prompt.shape
+    caches = init_caches(cfg, b, cfg.n_image_tokens + n + args.new_tokens,
+                         dtype=cfg.dtype, device=dev)
+    prefill = make_prefill_step(cfg, args.quant)
+    decode = make_decode_loop(cfg, args.new_tokens, quant=args.quant,
+                              eos_id=args.eos_id, with_stats=args.quant)
+    filled = {}
+
+    def prefill_body(tokens, image_embeds):
+        logits, filled["caches"] = prefill(
+            params, {"tokens": tokens, "image_embeds": image_embeds}, caches)
+        return (logits,)
+
+    def decode_body(logits):
+        toks, stats = decode(params, filled["caches"], logits)
+        if stats is None:
+            return (toks,)
+        return toks, torch.stack([stats["plane_traffic_fraction"],
+                                  stats["element_traffic_fraction"]])
+
+    bound = lambda: (params, caches)        # noqa: E731
+    progs = (Program(prefill_body, name="prefill", device=dev, bound=bound),
+             Program(decode_body, name="decode", device=dev, bound=bound))
+
+    def generate():
+        (logits,) = progs[0](prompt, img)
+        out = progs[1](logits)
+        if not args.quant:
+            return out[0].clone(), None
+        return out[0].clone(), {"plane_traffic_fraction": out[1][0].clone(),
+                                "element_traffic_fraction": out[1][1].clone()}
+    return generate
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -246,6 +295,8 @@ def main(argv=None):
                 fh.write(text + "\n")
         return None
 
+    if cfg.frontend == "audio_stub":
+        raise SystemExit("use examples/serve_decode.py for the audio stub")
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(cfg, generator=gen, device=dev)
@@ -256,11 +307,16 @@ def main(argv=None):
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=dev, dtype=torch.int32)
 
-    def generate():
-        out = greedy_generate(cfg, params, prompt, args.new_tokens,
-                              quant=args.quant, eos_id=args.eos_id,
-                              with_stats=args.quant, device=dev)
-        return out if args.quant else (out, None)
+    if cfg.frontend == "vision_stub":
+        img = torch.randn((args.batch, cfg.n_image_tokens, cfg.d_model),
+                          generator=gen, device=dev).to(torch.bfloat16)
+        generate = _vision_generate(cfg, params, prompt, img, args, dev)
+    else:
+        def generate():
+            out = greedy_generate(cfg, params, prompt, args.new_tokens,
+                                  quant=args.quant, eos_id=args.eos_id,
+                                  with_stats=args.quant, device=dev)
+            return out if args.quant else (out, None)
 
     _sync(dev)
     t0 = time.perf_counter()
@@ -284,8 +340,11 @@ def main(argv=None):
             args.new_tokens * ~hits.any(1)
         total_new = int(first.sum())
         steps = int(first.max()) if args.new_tokens else 0
+    shape = (f" + {cfg.n_image_tokens} image rows, then decode, as two "
+             f"programs" if cfg.frontend == "vision_stub"
+             else " + decode as one program")
     print(f"[serve] {cfg.name} on {dev}: prefill {args.batch}x"
-          f"{args.prompt_len} + decode as one program, first call "
+          f"{args.prompt_len}{shape}, first call "
           f"{t_first:.3f}s; {total_new} tokens in {t_decode:.3f}s "
           f"({total_new / max(t_decode, 1e-9):.1f} tok/s, {_path(dev)}, "
           f"prefill included)")

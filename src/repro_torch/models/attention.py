@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.core.logquant import (dequantize_page_codes,
                                       quantize_page_codes, scale_exponent)
-from repro_torch.models.layers import apply_rope, dense
+from repro_torch.models.layers import apply_rope, dense, rms_norm
 
 NEG_INF = -1e30
 
@@ -311,6 +311,10 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg,
               chunk_valid: Optional[torch.Tensor] = None):
     """GQA block body (pre-norm residual handled by the caller).
 
+    ``wq/wk/wv`` take the biases ``bq/bk/bv`` when the block has them
+    (``qkv_bias``); with ``cfg.qk_norm``, q and k are RMS-normed over
+    ``head_dim`` before RoPE, on every cache branch.
+
     Returns ``(attn_out, new_cache)``.  With a dense ``KVCache``, ``x`` is
     appended at ``cache.length``: a prompt (the cache assumed empty before;
     attend over the fresh K/V) or one decode token (attend over the
@@ -324,12 +328,20 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg,
     """
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = dense(p["wq"], x, p.get("wq_q") if quant else None, ctx=quant)
-    k = dense(p["wk"], x, p.get("wk_q") if quant else None, ctx=quant)
-    v = dense(p["wv"], x, p.get("wv_q") if quant else None, ctx=quant)
-    q = apply_rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
-    k = apply_rope(k.reshape(b, s, hkv, hd), positions, cfg.rope_theta)
+    q = dense(p["wq"], x, p.get("bq"), p.get("wq_q") if quant else None,
+              ctx=quant)
+    k = dense(p["wk"], x, p.get("bk"), p.get("wk_q") if quant else None,
+              ctx=quant)
+    v = dense(p["wv"], x, p.get("bv"), p.get("wv_q") if quant else None,
+              ctx=quant)
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, hkv, hd)
     v = v.reshape(b, s, hkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
         out = flash_attention(q, k, v, positions, positions, causal=True,
@@ -442,5 +454,6 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg,
         new_cache = KVCache(k=cache.k, v=cache.v, length=new_len)
 
     out = out.reshape(b, s, h * hd)
-    y = dense(p["wo"], out, p.get("wo_q") if quant else None, ctx=quant)
+    y = dense(p["wo"], out, quant=p.get("wo_q") if quant else None,
+              ctx=quant)
     return y, new_cache

@@ -4,9 +4,12 @@ tensors.
 The input is the reference tree after ``jax.tree.map(np.asarray, tree)``:
 dicts and tuples of numpy arrays (bfloat16 arrives as the ``ml_dtypes``
 type), scan-stacked leaves ``(R, ...)``, and the quantized ``*_q`` leaves
-as namedtuple-like objects read by field name.  The tests use it so both
-frameworks compute with the same weights and start a write from the same
-pool; on the card the port makes its own with ``init_params``.
+as namedtuple-like objects read by field name.  Every leaf is carried as
+it is, whatever its name: the ``qkv_bias`` and ``qk_norm`` leaves
+(``bq/bk/bv``, ``q_norm/k_norm``), the vision stub's ``img_proj`` and the
+``(R, 1)`` placeholders of a ``drop_float`` tree too.  The tests use it so
+both frameworks compute with the same weights and start a write from the
+same pool; on the card the port makes its own with ``init_params``.
 """
 
 from __future__ import annotations

@@ -39,16 +39,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def dense(w: torch.Tensor, x: torch.Tensor,
+          bias: Optional[torch.Tensor] = None,
           quant: Optional[QuantizedLinearParams] = None,
           ctx=None) -> torch.Tensor:
-    """``w``: (K, N); ``x``: (..., K).  With ``quant`` the GEMM runs through
-    the LOG2-activation / bit-plane-weight shift-add path; ``ctx`` (bool |
-    QuantCtx) carries its bit width and optional traffic collection."""
+    """``w``: (K, N); ``x``: (..., K); ``bias`` (N,) is added after the
+    cast to ``x.dtype``.  With ``quant`` the GEMM runs through the
+    LOG2-activation / bit-plane-weight shift-add path; ``ctx`` (bool |
+    QuantCtx) carries its bit width and optional traffic collection.  A
+    float projection whose weight ``quantize_model_params(...,
+    drop_float=True)`` dropped raises."""
     if quant is not None:
         qc = as_quant_ctx(ctx) or QuantCtx()
-        return quantized_linear_apply(quant, x, n_bits=qc.n_bits,
-                                      ctx=qc).to(x.dtype)
-    return torch.matmul(x, w.to(x.dtype))
+        y = quantized_linear_apply(quant, x, n_bits=qc.n_bits,
+                                   ctx=qc).to(x.dtype)
+    elif w.dim() < 2:
+        raise ValueError(f"float projection of a dropped weight {tuple(w.shape)}"
+                         f" (drop_float keeps only the planes): run it "
+                         f"quantized")
+    else:
+        y = torch.matmul(x, w.to(x.dtype))
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
 
 
 def swiglu(p, x: torch.Tensor, quant=False) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Decoder models (port of ``src/repro/models/model.py`` for the ``attn``,
-``mamba``, ``attn_moe`` and ``mamba_moe`` block kinds).
+"""Decoder models (port of ``src/repro/models/model.py``: the ``attn``,
+``mamba``, ``attn_moe`` and ``mamba_moe`` block kinds and the audio and
+vision frontend stubs).
 
 A model is a periodic ``pattern`` of block kinds repeated ``n_layers /
 len(pattern)`` times.  Parameters keep the reference's layout: one block
@@ -30,7 +31,7 @@ from repro_torch.core.logquant import code_dtype
 from repro_torch.core.shiftadd import QuantizedLinearParams, as_quant_ctx
 from repro_torch.models.attention import (KVCache, PagedKVCache,
                                           QuantPagedKVCache, attention)
-from repro_torch.models.layers import rms_norm, swiglu
+from repro_torch.models.layers import dense, rms_norm, swiglu
 from repro_torch.models.moe import moe_apply
 from repro_torch.models.ssd import (SSMState, mamba2_block,
                                     mamba2_init_state, write_rows_)
@@ -40,9 +41,8 @@ Params = Dict[str, Any]
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """The attention, MoE and SSM fields of the reference's
-    ``ModelConfig``, with torch dtypes (the frontend fields belong to a
-    later slice of the port).
+    """The reference's ``ModelConfig`` without its training-only
+    ``remat``, with torch dtypes.
 
     ``paged_attn_kernel``: ``"off"`` reads the paged pool through the
     dense gather; ``"pallas"`` (the reference's name) through the CUDA
@@ -60,6 +60,8 @@ class ModelConfig:
     n_kv_heads: int = 0
     head_dim: int = 128
     pattern: Tuple[str, ...] = ("attn",)
+    qk_norm: bool = False
+    qkv_bias: bool = False
     rope_theta: float = 1e4
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
@@ -82,6 +84,9 @@ class ModelConfig:
     ssm_head_dim: int = 64
     conv_width: int = 4
     ssd_chunk: int = 256
+    # frontends
+    frontend: str = "none"            # none | audio_stub | vision_stub
+    n_image_tokens: int = 0
     sub_quadratic: bool = False
 
     @property
@@ -128,13 +133,25 @@ def _normal(shape, gen: Optional[torch.Generator], dev: torch.device,
     return (x * scale).to(device=dev, dtype=dtype)
 
 
+def _stacked_normal(shape, gen: Optional[torch.Generator],
+                    dev: torch.device, scale: float, dtype) -> torch.Tensor:
+    """A leaf stacked over repeats, drawn one repeat at a time into the
+    ``dtype`` leaf: the f32 draw of a whole stacked leaf would be twice
+    its bf16 size (33.6 GB for qwen3-32b's ``gate``)."""
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    if dev.type != "meta":
+        for i in range(shape[0]):
+            out[i] = _normal(shape[1:], gen, dev, scale, dtype)
+    return out
+
+
 def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator,
                 dev: torch.device) -> Params:
     """One pattern position's block, its leaves stacked over repeats."""
     dt, r, d = cfg.dtype, cfg.repeats, cfg.d_model
 
     def proj(k, n):
-        return _normal((r, k, n), gen, dev, 1.0 / k ** 0.5, dt)
+        return _stacked_normal((r, k, n), gen, dev, 1.0 / k ** 0.5, dt)
 
     def const(shape, value, dtype=dt):
         return torch.full((r, *shape), value, dtype=dtype, device=dev)
@@ -144,6 +161,11 @@ def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator,
         block = {"ln1": const((d,), 1.0), "wq": proj(d, h * hd),
                  "wk": proj(d, hkv * hd), "wv": proj(d, hkv * hd),
                  "wo": proj(h * hd, d)}
+        if cfg.qkv_bias:
+            block.update(bq=const((h * hd,), 0.0), bk=const((hkv * hd,), 0.0),
+                         bv=const((hkv * hd,), 0.0))
+        if cfg.qk_norm:
+            block.update(q_norm=const((hd,), 1.0), k_norm=const((hd,), 1.0))
     else:
         h, n, di, w = (cfg.ssm_heads, cfg.ssm_state, cfg.d_inner,
                        cfg.conv_width)
@@ -176,18 +198,14 @@ def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator,
 def _init_moe(cfg: ModelConfig, gen, dev: torch.device, proj) -> Params:
     """A MoE MLP stacked over repeats: the f32 router (d, E), N(0, 0.02);
     routed experts (E, d, ffe) and (E, ffe, d) drawn as the reference's
-    ``dense_init(E*K, N)`` reshaped (scale ``1/sqrt(E*K)``), one repeat
-    at a time into the io-dtype leaf (an f32 draw of deepseek's whole
-    stacked leaf would take 20 GB); shared experts a dense MLP of width
-    ``ffe * n_shared_experts``."""
+    ``dense_init(E*K, N)`` reshaped (scale ``1/sqrt(E*K)``); shared
+    experts a dense MLP of width ``ffe * n_shared_experts``."""
     dt, r, d, e = cfg.dtype, cfg.repeats, cfg.d_model, cfg.n_experts
     ffe = cfg.moe_d_ff or cfg.d_ff
 
     def experts(k, n):
-        out = torch.empty((r, e, k, n), dtype=dt, device=dev)
-        for i in range(r):
-            out[i] = _normal((e, k, n), gen, dev, 1.0 / (e * k) ** 0.5, dt)
-        return out
+        return _stacked_normal((r, e, k, n), gen, dev, 1.0 / (e * k) ** 0.5,
+                               dt)
 
     mlp = {"router": _normal((r, d, e), gen, dev, 0.02, torch.float32),
            "experts": {"gate": experts(d, ffe), "up": experts(d, ffe),
@@ -202,11 +220,14 @@ def _init_moe(cfg: ModelConfig, gen, dev: torch.device, proj) -> Params:
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device=None) -> Params:
     """Random weights with the reference's shapes and scales: embeddings
-    N(0, 0.02), projections N(0, 1/sqrt(K)), conv weights N(0, 0.2^2),
-    norms and ``d_skip`` 1, biases, ``dt_bias`` and ``a_log`` 0; a
-    ``*_moe`` block's MLP as :func:`_init_moe`.  A mamba block has a dense
-    MLP only when ``d_ff`` is set.  ``generator`` defaults to one seeded
-    with 0 on ``device``; ``device="meta"`` gives the shapes alone."""
+    N(0, 0.02), projections N(0, 1/sqrt(K)) (stacked ones drawn a repeat
+    at a time), conv weights N(0, 0.2^2), norms (``q_norm``/``k_norm``
+    with ``qk_norm``) and ``d_skip`` 1, biases (``bq/bk/bv`` with
+    ``qkv_bias``), ``dt_bias`` and ``a_log`` 0; a ``*_moe`` block's MLP as
+    :func:`_init_moe`; a ``vision_stub`` model's ``img_proj`` (d, d)
+    drawn last.  A mamba block has a dense MLP only when ``d_ff`` is set.
+    ``generator`` defaults to one seeded with 0 on ``device``;
+    ``device="meta"`` gives the shapes alone."""
     _check_kinds(cfg)
     dev = resolve_device(device)
     gen = generator or (None if dev.type == "meta" else
@@ -221,6 +242,9 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     if not cfg.tie_embeddings:
         params["lm_head"] = _normal((cfg.d_model, cfg.vocab_size), gen, dev,
                                     0.02, cfg.dtype)
+    if cfg.frontend == "vision_stub":
+        params["img_proj"] = _normal((cfg.d_model, cfg.d_model), gen, dev,
+                                     1.0 / cfg.d_model ** 0.5, cfg.dtype)
     return params
 
 
@@ -367,7 +391,10 @@ def _apply_block(cfg: ModelConfig, kind: str, p: Params, x, positions,
     return x
 
 
-def forward(cfg: ModelConfig, params: Params, *, tokens: torch.Tensor,
+def forward(cfg: ModelConfig, params: Params, *,
+            tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None,
+            image_embeds: Optional[torch.Tensor] = None,
             caches: Optional[Params] = None, quant=False,
             return_stats: bool = False,
             valid_len: Optional[torch.Tensor] = None,
@@ -376,6 +403,12 @@ def forward(cfg: ModelConfig, params: Params, *, tokens: torch.Tensor,
             state_rows: Optional[torch.Tensor] = None):
     """Returns ``(logits, new_caches)``; ``caches`` enables prefill/decode
     (the cache tensors are written in place).
+
+    The input rows are ``params["embed"][tokens]``, or ``embeds`` (B, S,
+    d) cast to the io dtype (the audio stub's frame embeddings); with
+    ``image_embeds`` (B, n_img, d), ``img_proj`` of them (a float
+    projection) is prepended along the sequence (the vision stub), and
+    positions and cache lengths count those rows.
 
     ``caches["length"]`` is an int (whole batch) or a ``(B,)`` int32
     tensor (per-slot, continuous batching): positions, writes and masks
@@ -416,7 +449,13 @@ def forward(cfg: ModelConfig, params: Params, *, tokens: torch.Tensor,
         raise ValueError("chunk_valid requires caches: a chunk appends to "
                          "resident earlier chunks")
     ctx = as_quant_ctx(quant)
-    x = params["embed"][tokens]
+    if embeds is not None:                 # audio stub: frame embeddings
+        x = embeds.to(cfg.dtype)
+    else:
+        x = params["embed"][tokens]
+    if image_embeds is not None:           # vision stub: prepend patches
+        img = dense(params["img_proj"], image_embeds.to(cfg.dtype))
+        x = torch.cat([img, x], dim=1)
     b, s, _ = x.shape
     base = caches["length"] if caches is not None else 0
     ar = torch.arange(s, dtype=torch.int32, device=x.device)

@@ -4,10 +4,10 @@
 Every attention ``wq/wk/wv/wo``, mamba ``wz/wx/out_proj``, dense MLP and
 shared-expert ``gate/up/down`` leaf gets a ``QuantizedLinearParams``
 under ``<name>_q``, stacked over repeats like the float leaf, which stays
-beside it.  The mamba ``wb/wc/wdt`` projections, the MoE router and the
-routed experts stay float, as in the reference.
-``pack=True`` stores the planes packed 8-to-a-byte along K (the
-int8-footprint deploy format).
+beside it unless ``drop_float=True``.  The mamba ``wb/wc/wdt``
+projections, the MoE router, the routed experts and the vision stub's
+``img_proj`` stay float, as in the reference.  ``pack=True`` stores the
+planes packed 8-to-a-byte along K (the int8-footprint deploy format).
 """
 
 from __future__ import annotations
@@ -28,45 +28,64 @@ _MAMBA_PROJ = ("wz", "wx", "out_proj")
 
 def _quantize_stacked(w: torch.Tensor, act_scale: float = 1.0,
                       pack: bool = False) -> QuantizedLinearParams:
-    """w: (R, K, N) stacked over repeats -> stacked quant params."""
-    layers = []
-    for m in w:
+    """w: (R, K, N) stacked over repeats -> stacked quant params, one
+    repeat at a time into the stacked leaves (only one repeat's unpacked
+    planes are ever temporaries)."""
+    out = None
+    for i, m in enumerate(w):
         q = quantized_linear_init(m, act_scale=act_scale)
         if pack:
             q = q._replace(planes=pack_planes(q.planes, axis=0))
-        layers.append(q)
-    return QuantizedLinearParams(
-        planes=torch.stack([q.planes for q in layers]),
-        w_scale=torch.stack([q.w_scale for q in layers]),
-        act_scale=torch.stack([q.act_scale for q in layers]),
-        bias=None)
-
-
-def _quantize_mlp(mlp: Dict[str, Any], act_scale: float,
-                  pack: bool) -> Dict[str, Any]:
-    return {**mlp, **{name + "_q": _quantize_stacked(mlp[name], act_scale,
-                                                     pack)
-                      for name in _MLP_PROJ}}
+        if out is None:
+            out = [t.new_empty((w.shape[0], *t.shape))
+                   for t in (q.planes, q.w_scale, q.act_scale)]
+        for dst, t in zip(out, (q.planes, q.w_scale, q.act_scale)):
+            dst[i] = t
+    return QuantizedLinearParams(*out, bias=None)
 
 
 def quantize_model_params(cfg: ModelConfig, params: Dict[str, Any],
-                          act_scale: float = 1.0,
+                          act_scale: float = 1.0, drop_float: bool = False,
                           pack: bool = False) -> Dict[str, Any]:
+    """A new params tree with ``<name>_q`` beside every eligible
+    projection.
+
+    ``drop_float=True`` replaces each quantized projection's float weight
+    with the reference's placeholder, zeros ``(R, 1)`` in the io dtype:
+    the deployment where only the bit-plane representation is resident.
+    Unlike the reference, which cannot free its input, the call then also
+    puts the placeholder into the CALLER's tree (``params``' block and MLP
+    dicts) as soon as that leaf's planes exist, so the float weights are
+    freed as the call goes unless something else holds them; the peak is
+    the float model plus one leaf's planes and one repeat's unpacked
+    temporaries.  With ``drop_float=False`` the input is left as it was.
+    A float forward on a dropped tree raises (``models.layers.dense``).
+    """
     _check_kinds(cfg)
+
+    def quantize(src: Dict[str, Any], dst: Dict[str, Any], names) -> None:
+        for name in names:
+            if name not in src:
+                continue
+            dst[name + "_q"] = _quantize_stacked(src[name], act_scale, pack)
+            if drop_float:
+                ph = torch.zeros((cfg.repeats, 1), dtype=cfg.dtype,
+                                 device=src[name].device)
+                src[name] = dst[name] = ph
+
     blocks = []
     for kind, block in zip(cfg.pattern, params["blocks"]):
         blk = dict(block)
-        names = _ATTN_PROJ if base_kind(kind) == "attn" else _MAMBA_PROJ
-        for name in names:
-            blk[name + "_q"] = _quantize_stacked(blk[name], act_scale, pack)
+        quantize(block, blk, _ATTN_PROJ if base_kind(kind) == "attn"
+                 else _MAMBA_PROJ)
         if "mlp" in blk:
-            mlp = blk["mlp"]
+            mlp_in = block["mlp"]
+            mlp = blk["mlp"] = dict(mlp_in)
             if "experts" not in mlp:                # dense MLP
-                mlp = _quantize_mlp(mlp, act_scale, pack)
+                quantize(mlp_in, mlp, _MLP_PROJ)
             if "shared" in mlp:
-                mlp = dict(mlp, shared=_quantize_mlp(mlp["shared"],
-                                                     act_scale, pack))
-            blk["mlp"] = mlp
+                mlp["shared"] = dict(mlp_in["shared"])
+                quantize(mlp_in["shared"], mlp["shared"], _MLP_PROJ)
         blocks.append(blk)
     out = dict(params)
     out["blocks"] = tuple(blocks)

@@ -311,11 +311,15 @@ def graph_nodes(entry: _Entry) -> Optional[Tuple[int, int]]:
 # ---------------------------------------------------------------------------
 
 def make_prefill_step(cfg: ModelConfig, quant: QuantFlag = False):
-    """(params, batch, caches) -> (last-token logits, caches)."""
+    """(params, batch, caches) -> (last-token logits, caches).  ``batch``
+    holds ``tokens``, or ``embeds`` (audio stub), and ``image_embeds``
+    with a vision stub."""
     ctx = _quant_ctx(quant)
 
     def prefill_step(params, batch, caches):
-        logits, caches = forward(cfg, params, tokens=batch["tokens"],
+        logits, caches = forward(cfg, params, tokens=batch.get("tokens"),
+                                 embeds=batch.get("embeds"),
+                                 image_embeds=batch.get("image_embeds"),
                                  caches=caches, quant=ctx)
         return logits[:, -1], caches
     return prefill_step
@@ -324,12 +328,14 @@ def make_prefill_step(cfg: ModelConfig, quant: QuantFlag = False):
 def make_serve_step(cfg: ModelConfig, quant: QuantFlag = False,
                     with_stats: bool = False):
     """(params, caches, token (B, 1)) -> (logits, caches[, stats]): one new
-    token against a pre-filled cache."""
+    token against a pre-filled cache.  An audio-stub model decodes from a
+    frame embedding (B, 1, d) in place of the token id."""
     ctx = _quant_ctx(quant)
+    key = "embeds" if cfg.frontend == "audio_stub" else "tokens"
 
     def serve_step(params, caches, token):
-        out = forward(cfg, params, tokens=token, caches=caches, quant=ctx,
-                      return_stats=with_stats)
+        out = forward(cfg, params, caches=caches, quant=ctx,
+                      return_stats=with_stats, **{key: token})
         if with_stats:
             logits, caches, stats = out
             return logits[:, -1], caches, stats

@@ -170,6 +170,9 @@ class ServeScheduler:
 
     def __init__(self, cfg: ModelConfig, params,
                  config: Optional[ServeConfig] = None, *, device=None):
+        if cfg.frontend != "none":
+            raise ValueError("ServeScheduler serves token-id models only "
+                             f"(frontend={cfg.frontend!r})")
         if config is None:
             config = ServeConfig()
         if not isinstance(config, ServeConfig):

@@ -10,10 +10,12 @@ bf16 (both widen q and keep ``p`` in f32), with trash-page codes and
 scales and the tail ring's dead rows bitwise invisible.  Both kernels are
 also held at the serving path's geometry (page_len 16, 32 table columns,
 rows up to 512 tokens, so every warp of a block walks several pages), and
-there at D = 128 and R = 8.  K2 is also held at mamba2-780m's projection
-shapes, the mamba smoke config's serving programs (scheduler ticks
-with SSM snapshots, the one-shot generate) and the deepseek-moe smoke
-config's (ticks that overflow expert capacity) as CUDA graphs against
+there at D = 128 and R = 8, and at qwen3-32b's (8, 8, 128) and
+musicgen-medium's (24, 1, 64).  K2 is also held at mamba2-780m's and
+qwen3-32b's largest projection shapes; the mamba smoke config's serving
+programs (scheduler ticks with SSM snapshots, the one-shot generate), the
+deepseek-moe smoke config's (ticks that overflow expert capacity) and the
+qwen3 smoke config's (``qk_norm``) as CUDA graphs against
 ``engine.eager()``.
 
 Every test here is marked ``cuda`` and skips on a host without an NVIDIA
@@ -320,7 +322,8 @@ def test_paged_attention_refuses_mixed_dtypes_and_views(cuda):
 # 32 table columns) with rows long enough to give each of a block's warps
 # several pages, plus D = 128 and R = 8 at the same lengths
 LONG_LENGTHS = [512, 300, 64, 33, 17, 16, 1, 0]
-LONG_GEOS = [(3, 3, 64), (3, 3, 128), (1, 8, 64)]
+LONG_GEOS = [(3, 3, 64), (3, 3, 128), (1, 8, 64),
+             (8, 8, 128), (24, 1, 64)]     # qwen3-32b's, musicgen-medium's
 
 
 def _assert_long_partials_close(got, want):
@@ -945,6 +948,74 @@ def test_moe_graph_tick_bit_equal_to_eager_and_to_itself(cuda):
         tick = sched.programs()["tick"].entries()[0].census
         assert tick["bitplane_matmul"] == cfg.n_layers * 7 * 4
         assert tick["paged_attention"] == cfg.n_layers * 4
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 9), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    outs = []
+    for mode in ("eager", "graph", "graph"):
+        with engine.eager() if mode == "eager" else torch.no_grad():
+            outs.append(engine.greedy_generate(cfg, params, prompt, 8,
+                                               quant=True, with_stats=True))
+    for toks, st in outs[1:]:
+        assert torch.equal(toks, outs[0][0])
+        for key in st:
+            assert torch.equal(st[key], outs[0][1][key])
+
+
+# ---------------------------------------------------------------------------
+# qwen3-32b: K2 at its largest projection shapes, its serving programs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("layout", ["unpacked", "packed"])
+@pytest.mark.parametrize("k,n", [(25600, 5120), (5120, 25600)])
+def test_fused_kernel_bit_equal_at_qwen3_shapes(cuda, k, n, layout):
+    """``down`` (K 25600: 200 K tiles over the cluster ranks) and
+    ``gate``/``up`` (N 25600) at a decode step's M = 4: output equal to
+    the plain version and the direct-shift oracle, codes to K1's."""
+    x, w, unpacked, packed = _fused(4, k, n, k + n, torch.bfloat16)
+    planes = packed if layout == "packed" else unpacked
+    a = torch.tensor(0.37, device=cuda)
+    want, q = bm_ops.log2_bitplane_matmul_plain(x, a, planes, 4)
+    y, got = bm_ops.log2_bitplane_matmul(x, a, planes, 4, codes=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, want)
+    assert torch.equal(got.exp, q.exp) and torch.equal(got.sign, q.sign)
+    assert torch.equal(y, bitplane_matmul_ref(q.exp, q.sign, w, 4))
+
+
+def test_qwen3_graph_tick_and_generate_bit_equal_to_eager(cuda):
+    """qwen3 smoke (``qk_norm``) on packed planes with stats, paged with
+    the prefix cache and K3: the scheduler's graphs against
+    ``engine.eager()`` (tokens, stats, and after every tick the lengths,
+    page tables and pool bytes bit for bit), then the one-shot program:
+    eager, graph, graph equal."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import init_params
+    from repro_torch.models.quantize import quantize_model_params
+    from repro_torch.serving import engine
+
+    cfg = get_smoke("qwen3-32b")
+    params = quantize_model_params(cfg, init_params(
+        cfg, generator=torch.Generator(device=cuda).manual_seed(0),
+        device=cuda), pack=True, drop_float=True)
+    kw = dict(GRAPH_PAGED, quant="pallas", with_stats=True)
+    prompts = _graph_prompts(cfg.vocab_size)
+    with engine.eager():
+        _, elog, eres = _serve_ticks(cfg, params, kw, prompts)
+    sched, glog, gres = _serve_ticks(cfg, params, kw, prompts)
+    assert gres == eres
+    assert len(glog) == len(elog)
+    for t, (g, e) in enumerate(zip(glog, elog)):
+        assert torch.equal(g[0], e[0]), f"lengths, tick {t}"
+        assert np.array_equal(g[1], e[1]), f"table, tick {t}"
+        for a, b in zip(g[2], e[2]):
+            assert torch.equal(a, b), f"pool bytes, tick {t}"
+    tick = sched.programs()["tick"].entries()[0].census
+    assert tick["bitplane_matmul"] == cfg.n_layers * 7 * 4
+    assert tick["paged_attention"] == cfg.n_layers * 4
 
     gen = torch.Generator(device=cuda).manual_seed(1)
     prompt = torch.randint(0, cfg.vocab_size, (4, 9), generator=gen,

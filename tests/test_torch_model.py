@@ -85,7 +85,7 @@ def test_config_copied_field_for_field(which):
             assert mine == ref, f.name
     assert cfg.repeats == jcfg.repeats
     with pytest.raises(KeyError):
-        get_config("qwen3-32b")
+        get_config("llama-70b")
 
 
 def test_init_params_and_caches_have_reference_layout():
