@@ -213,9 +213,28 @@ Phases, in order; any failure exits non-zero before the result line:
    to the first input that crosses a LOG2 code boundary by float
    rounding alone).
 
+13. the paper's own evaluation at the published sizes, in f32: AlexNet
+   (227x227, batch 1), PTBLM (2 LSTM layers, hidden 1500, seq 35), the
+   transformer (6 + 6 blocks, d 512, ff 2048, ReLU), BERT-base (12 x 768
+   x 3072) and BERT-large (24 x 1024 x 4096), GELU, seq 128, weights from
+   a seeded generator on the card.  Each forward timed (CUDA events, and
+   its graph replayed) with its peak memory; the forward, then K1 on
+   every recorded GEMM input (203 launches: 8, 3, 48, 48, 96; every
+   other kernel none), the codes bit-equal to the plain version; K1's
+   time by graph replay beside its bytes bound and the plain version's;
+   ``measure`` over each net's concatenated codes and
+   ``weight_access_report`` per layer; the same weights through the
+   plain path on the host, the share of codes that differ held under
+   ``FLIP_LIMIT`` (1e-4) per net; then the simulator on the five
+   workloads and three accelerators, with the card's statistics and with
+   ``paper_preset``: Fig. 2's negative-exponent shares, Fig. 3's mean
+   savings and the averages of Figs. 9-11 against NaHiD and Neurocube,
+   each beside the paper's value.
+
 Prints a ``serving:`` line (graph and eager tok/s of phases 4, 7, 9, 10,
-11 and 12), a ``kernels:`` line, the JSON kernel table and, last, the result
-line ``{"ok": true, "device": {...}}``.  It imports nothing of JAX and
+11 and 12), a ``paper evaluation:`` line (phase 13's nets and figures), a
+``kernels:`` line, the JSON kernel table and, last, the result line
+``{"ok": true, "device": {...}}``.  It imports nothing of JAX and
 nothing of the JAX package.
 """
 
@@ -275,6 +294,29 @@ CUT_LAYERS = 4                      # depth of phases 10-12 eager runs
 LONG_LENGTHS = [512, 300, 64, 33, 17, 16, 1, 0]
 LONG_GEOS = [(3, 3, 64), (3, 3, 128), (1, 8, 64), (16, 1, 128), (8, 4, 128),
              (8, 8, 128), (8, 5, 128), (8, 3, 128), (8, 6, 128), (24, 1, 64)]
+# phase 13: the paper's five nets (Table I), K1's launches on each (one per
+# recorded GEMM input), the bound on codes that may differ between the
+# card and the host, and the paper's printed values (the constants of
+# benchmarks/paper_figures.py, copied)
+PAPER_NETS = ["alexnet", "ptblm", "transformer", "bert-base", "bert-large"]
+PAPER_K1_LAUNCHES = {"alexnet": 8, "ptblm": 3, "transformer": 48,
+                     "bert-base": 48, "bert-large": 96}
+FLIP_LIMIT = 1e-4
+PAPER_VALUES = {
+    "neg_frac": {"alexnet": 0.36, "ptblm": 0.98, "transformer": 0.57,
+                 "bert-base": 0.82, "bert-large": 0.85},
+    "fig3_avg_savings": 0.25,
+    "fig9_avg_vs_neurocube": 0.276,
+    "fig9_avg_vs_nahid": 0.75,
+    "fig10_avg_vs_neurocube": 4.25,
+    "fig10_avg_vs_nahid": 1.38,
+    "fig10_ptblm_vs_nahid": 1.86,
+    "fig10_alexnet_vs_nahid": 1.07,
+    "fig11_avg_vs_neurocube": 3.52,
+    "fig11_avg_vs_nahid": 1.28,
+    "fig11_ptblm_vs_neurocube": 8.2,
+    "fig11_ptblm_vs_nahid": 1.6,
+}
 
 
 def fail(msg: str) -> None:
@@ -611,6 +653,10 @@ def main() -> None:
     # -- phase 12: full-width qwen3-32b, float then packed planes alone ----
     m12 = phase12(torch, dev, card, l2_ops, bm_ops, pa_ops)
     print(f"  (phase 12 done at {time.perf_counter() - t_main:.0f} s)")
+
+    # -- phase 13: the paper's evaluation at published sizes ---------------
+    m13 = phase13(torch, dev, card, l2_ops, bm_ops, pa_ops)
+    print(f"  (phase 13 done at {time.perf_counter() - t_main:.0f} s)")
     serving = {"phase4": {tag: {
         "graph_tok_s": BATCH * NEW / r["t_graph"],
         "eager_tok_s": BATCH * NEW / r["t_eager"],
@@ -643,6 +689,10 @@ def main() -> None:
             # alone (phase 12)
             entry["qwen3_32b"] = {"launches": m12["k2_launches"],
                                   **m12["k2"]}
+        else:
+            # the paper evaluation: K1 alone on every recorded GEMM input
+            # of the five nets (phase 13)
+            entry["paper_nets"] = m13["k1"]
         table.append(entry)
     table.append({
         "name": "paged_attention", "route": "cuda",
@@ -3620,6 +3670,198 @@ def _to(torch, tree, dev):
         return (type(tree)(*items) if hasattr(tree, "_fields")
                 else tuple(items))
     return tree.to(dev)
+
+
+
+
+def phase13(torch, dev, card, l2_ops, bm_ops, pa_ops) -> dict:
+    """The paper's own evaluation at the published sizes: the five Table I
+    nets record their GEMM inputs on the card, K1 codes every one, the
+    codes feed ``measure`` and ``weight_access_report``, the same weights
+    run through the plain path on the host, and the simulator turns the
+    card's statistics into Figs. 2, 3 and 9-11."""
+    from repro_torch.core.access_model import weight_access_report
+    from repro_torch.core.logquant import LogQuantized, log2_quantize
+    from repro_torch.models import paper_nets
+    from repro_torch.simulator import (ALL_ACCELERATORS, PAPER_WORKLOADS,
+                                       measure, paper_preset, simulate)
+
+    t_phase = time.perf_counter()
+    gc_cuda(torch)
+    kernels = (l2_ops.log2quant, bm_ops.bitplane_matmul,
+               pa_ops.paged_attention, pa_ops.paged_attention_quant)
+    print(f"phase 13: the paper's five nets (Table I) at published sizes, "
+          f"f32, weights from seed 13 + i on the card; on {card}")
+    nets = {}
+    card_stats = {}
+    for i, name in enumerate(PAPER_NETS):
+        fwd = paper_nets.PAPER_ACTIVATIONS[name]
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev).manual_seed(13 + i)
+        params = paper_nets.init_paper_params(name, gen, dev)
+        fwd(params)                          # cuDNN's algorithm choice
+        fwd_ms = eager_ms(torch, lambda: fwd(params), reps=3, warm=False)
+        fwd_graph_ms = graph_ms(torch, lambda: fwd(params), reps=5)
+        # the path: the forward, then K1 on every recorded tensor, every
+        # count set to 0 just before and read just after
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        acts = fwd(params)
+        codes = [l2_ops.log2quant(a) for _, a in acts]
+        torch.cuda.synchronize()
+        counts = {k.__name__: k.launches for k in kernels}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(counts == {"log2quant": PAPER_K1_LAUNCHES[name],
+                         "bitplane_matmul": 0, "paged_attention": 0,
+                         "paged_attention_quant": 0},
+              f"phase 13 {name}: launches {counts}")
+        names = [n for n, _ in acts]
+        xs = [a for _, a in acts]
+        elems = sum(a.numel() for a in xs)
+        err = 0
+        for n, a, q in zip(names, xs, codes):
+            check(a.dtype == torch.float32 and bool(torch.isfinite(a).all()),
+                  f"phase 13 {name} {n}: non-finite or not f32")
+            ref = log2_quantize(a)
+            err = max(err, int((q.exp.int() - ref.exp.int()).abs().max()),
+                      int((q.sign.int() - ref.sign.int()).abs().max()))
+            check(torch.equal(q.exp, ref.exp) and torch.equal(q.sign,
+                                                              ref.sign),
+                  f"phase 13 {name} {n}: K1 differs from its plain version")
+        k1_ms = graph_ms(torch, lambda: [l2_ops.log2quant(a) for a in xs])
+        plain_ms = graph_ms(torch, lambda: [log2_quantize(a) for a in xs],
+                            reps=5)
+        exp = torch.cat([q.exp.reshape(-1) for q in codes])
+        st = measure(LogQuantized(exp, torch.ones_like(exp)))
+        card_stats[name] = st
+        reports = [weight_access_report(q) for q in codes]
+        sav_e = [float(r.savings_element) for r in reports]
+        sav_t = [float(r.savings_tile) for r in reports]
+        whole = weight_access_report(LogQuantized(exp, torch.ones_like(exp)))
+        check(abs(float(whole.savings_element)
+                  - st.estimated_memory_savings()) < 1e-5,
+              f"phase 13 {name}: access report and measure disagree")
+
+        # the same weights through the plain path on the host
+        t0 = time.perf_counter()
+        host = fwd({k: v.cpu() for k, v in params.items()})
+        check([n for n, _ in host] == names, f"phase 13 {name}: host names")
+        flips = signs = 0
+        host_exp = []
+        for (_, h), q in zip(host, codes):
+            hq = log2_quantize(h)
+            flips += int((hq.exp != q.exp.cpu()).sum())
+            signs += int(((hq.exp == q.exp.cpu())
+                          & (hq.sign != q.sign.cpu())).sum())
+            host_exp.append(hq.exp.reshape(-1))
+        host_exp = torch.cat(host_exp)
+        hst = measure(LogQuantized(host_exp, torch.ones_like(host_exp)))
+        host_s = time.perf_counter() - t0
+        share = (flips + signs) / elems
+        check(share < FLIP_LIMIT, f"phase 13 {name}: {share:.3g} of the codes "
+              f"differ between the card and the host (limit {FLIP_LIMIT})")
+        nbytes = elems * (4 + 2)
+        nets[name] = dict(
+            records=len(xs), elements=elems, max_abs_err=err,
+            forward_ms=fwd_ms,
+            forward_graph_ms=fwd_graph_ms, peak_gb=peak_gb,
+            launches=counts["log2quant"], ms=k1_ms, plain_ms=plain_ms,
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes,
+            flipped_codes=flips, flipped_signs=signs, flipped_share=share,
+            d_negative_fraction=abs(st.negative_fraction
+                                    - hst.negative_fraction),
+            d_zero_frac=abs(st.zero_frac - hst.zero_frac), host_s=host_s,
+            negative_fraction=st.negative_fraction, zero_frac=st.zero_frac,
+            savings=st.estimated_memory_savings())
+        r = nets[name]
+        print(f"  {name}: {len(xs)} records, {elems} elements; forward "
+              f"{fwd_ms:.4f} ms (host-issued, CUDA events) / "
+              f"{fwd_graph_ms:.4f} ms (graph replay); peak "
+              f"{peak_gb:.3f} GB; K1 {counts['log2quant']} launches "
+              f"{k1_ms:.4f} ms (graph replay) against its "
+              f"{r['bound_ms']:.5f} ms bound ({nbytes} B), plain "
+              f"{plain_ms:.4f} ms; codes bit-equal to the plain version")
+        print(f"    host (same weights, plain path): {host_s:.1f} s; codes "
+              f"that differ {flips} exponents + {signs} signs of {elems} = "
+              f"{share:.3g} (limit {FLIP_LIMIT}); |d negative_fraction| "
+              f"{r['d_negative_fraction']:.3g}, |d zero_frac| "
+              f"{r['d_zero_frac']:.3g}")
+        print(f"    negative_fraction {st.negative_fraction:.6f}, zero_frac "
+              f"{st.zero_frac:.6f}, estimated savings "
+              f"{st.estimated_memory_savings():.6f}; weight_access_report "
+              f"per layer: element savings {min(sav_e):.4f}..{max(sav_e):.4f}"
+              f", tile (256) savings {min(sav_t):.4f}..{max(sav_t):.4f}")
+        del params, acts, codes, xs, host, exp, host_exp
+        gc_cuda(torch)
+
+    # -- the simulator: Figs. 2, 3 and 9-11 --------------------------------
+    figs = {}
+    for source in ("card", "preset"):
+        stats = card_stats if source == "card" else {
+            m: paper_preset(m) for m in PAPER_NETS}
+        sims = {m: {c.name: simulate(c, PAPER_WORKLOADS[m](), stats[m])
+                    for c in ALL_ACCELERATORS} for m in PAPER_NETS}
+        f = {"neg_frac": {m: stats[m].negative_fraction for m in PAPER_NETS},
+             "fig3_avg_savings": float(sum(
+                 stats[m].estimated_memory_savings() for m in PAPER_NETS)
+                 / len(PAPER_NETS))}
+        for fig, num, den, key in (
+                ("fig9", "qeihan", "neurocube", "dram_bits"),
+                ("fig9", "qeihan", "nahid", "dram_bits"),
+                ("fig10", "neurocube", "qeihan", "time_s"),
+                ("fig10", "nahid", "qeihan", "time_s"),
+                ("fig11", "neurocube", "qeihan", "energy_j"),
+                ("fig11", "nahid", "qeihan", "energy_j")):
+            base = den if num == "qeihan" else num
+            per = {m: getattr(s[num], key) / getattr(s[den], key)
+                   for m, s in sims.items()}
+            f[f"{fig}_vs_{base}"] = per
+            f[f"{fig}_avg_vs_{base}"] = sum(per.values()) / len(per)
+        for v in f.values():
+            for x in (v.values() if isinstance(v, dict) else [v]):
+                check(math.isfinite(x) and x > 0, f"phase 13: bad figure {f}")
+        figs[source] = f
+    print("  Fig. 2 negative-exponent share: card / preset / paper")
+    for m in PAPER_NETS:
+        print(f"    {m}: {figs['card']['neg_frac'][m]:.4f} / "
+              f"{figs['preset']['neg_frac'][m]:.4f} / "
+              f"{PAPER_VALUES['neg_frac'][m]}")
+    for key in ("fig3_avg_savings", "fig9_avg_vs_neurocube",
+                "fig9_avg_vs_nahid", "fig10_avg_vs_neurocube",
+                "fig10_avg_vs_nahid", "fig11_avg_vs_neurocube",
+                "fig11_avg_vs_nahid"):
+        print(f"  {key}: card {figs['card'][key]:.4f}, preset "
+              f"{figs['preset'][key]:.4f}, paper {PAPER_VALUES[key]}")
+    for fig, paper in (("fig10_vs_nahid", {"ptblm": "fig10_ptblm_vs_nahid",
+                                           "alexnet": "fig10_alexnet_vs_nahid"}),
+                       ("fig11_vs_neurocube",
+                        {"ptblm": "fig11_ptblm_vs_neurocube"}),
+                       ("fig11_vs_nahid", {"ptblm": "fig11_ptblm_vs_nahid"})):
+        print(f"  {fig} per net (card / preset / paper): " + ", ".join(
+            f"{m} {figs['card'][fig][m]:.3f} / {figs['preset'][fig][m]:.3f}"
+            + (f" / {PAPER_VALUES[paper[m]]}" if m in paper else "")
+            for m in PAPER_NETS))
+    total = {k: sum(r[k] for r in nets.values())
+             for k in ("launches", "elements", "ms", "plain_ms", "bytes")}
+    bound = total["bytes"] / HBM_BYTES_PER_S * 1e3
+    check(total["launches"] == sum(PAPER_K1_LAUNCHES.values()),
+          f"phase 13: K1 launched {total['launches']} times")
+    print(f"  K1 on the paper path: {total['launches']} launches, "
+          f"{total['elements']} elements, {total['ms']:.4f} ms (graph "
+          f"replay, summed over the nets) against its {bound:.5f} ms bound; "
+          f"plain {total['plain_ms']:.4f} ms; phase 13 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    print(f"paper evaluation ({card}): "
+          f"{json.dumps({'nets': nets, 'figures': figs})}")
+    return {"k1": {"launches": total["launches"], "ms": total["ms"],
+                   "plain_ms": total["plain_ms"], "bound_ms": bound,
+                   "bound_by": "bytes", "library_ms": None,
+                   "max_abs_err": max(r["max_abs_err"]
+                                      for r in nets.values()),
+                   "per_net": {m: {k: nets[m][k] for k in (
+                       "launches", "ms", "plain_ms", "bound_ms")}
+                       for m in PAPER_NETS}}}
 
 
 if __name__ == "__main__":

@@ -1,7 +1,9 @@
 """LOG2 activation quantization — QeiHaN paper Eqs. 2-4 (Fig. 5 comparator).
 
 Port of ``src/repro/core/logquant.py``: the quantizer and its inverse, and
-the page-level wire codes of the log2-quantized KV page pool.
+the page-level wire codes of the log2-quantized KV page pool, the direct
+float cross-check :func:`log2_quantize_naive`, and the Fig. 2 / §VI-B
+shares :func:`negative_fraction` and :func:`pruned_fraction`.
 An activation ``x`` quantizes to ``sign * 2^exp`` with an ``n_bits``-bit
 exponent in ``[-(2^(n-1)), 2^(n-1) - 1]``; the minimum code is the zero
 sentinel (exact zeros, subnormals, NaN and everything whose rounded exponent
@@ -20,8 +22,10 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["LogQuantized", "zero_sentinel", "log2_quantize",
-           "log2_dequantize", "code_dtype", "pack_codes", "unpack_codes",
-           "scale_exponent", "quantize_page_codes", "dequantize_page_codes"]
+           "log2_quantize_naive", "log2_dequantize", "code_dtype",
+           "pack_codes", "unpack_codes", "scale_exponent",
+           "quantize_page_codes", "dequantize_page_codes",
+           "negative_fraction", "pruned_fraction", "share"]
 
 # First float32 mantissa field at or above sqrt(2): m >= sqrt(2) <=>
 # M >= _SQRT2_M_F32 for m = 1 + M / 2^23 (floor((sqrt(2) - 1) * 2^23) + 1).
@@ -62,6 +66,20 @@ def log2_quantize(x: torch.Tensor, n_bits: int = 4) -> LogQuantized:
     e = torch.clamp(rounded, sentinel, emax)
     e = torch.where(is_subnormal_or_zero | is_nan, sentinel, e)
     e = torch.where(is_nonfinite & ~is_nan, emax, e)
+    sign = torch.where(xf < 0, -1, 1).to(torch.int8)
+    return LogQuantized(exp=e.to(torch.int8), sign=sign)
+
+
+def log2_quantize_naive(x: torch.Tensor, n_bits: int = 4) -> LogQuantized:
+    """Direct float evaluation of Eq. 3, ``floor(log2|x| + 0.5)`` (a
+    cross-check only, not the specification: within float error of
+    ``k + 1/2`` it may take the other code than the comparator)."""
+    sentinel = zero_sentinel(n_bits)
+    emax = (1 << (n_bits - 1)) - 1
+    xf = x.float()
+    absx = xf.abs()
+    e = torch.clamp(torch.floor(torch.log2(absx) + 0.5), sentinel, emax)
+    e = torch.where((absx == 0) | torch.isnan(xf), sentinel, e)
     sign = torch.where(xf < 0, -1, 1).to(torch.int8)
     return LogQuantized(exp=e.to(torch.int8), sign=sign)
 
@@ -149,3 +167,25 @@ def dequantize_page_codes(codes: torch.Tensor, scale_exp: torch.Tensor,
                     -126, 127)
     val = q.sign.float() * _pow2(e)
     return torch.where(q.exp == zero_sentinel(n_bits), 0.0, val).to(dtype)
+
+
+def negative_fraction(q: LogQuantized, n_bits: int = 4) -> torch.Tensor:
+    """Share of the live (non-pruned) activations with a negative exponent
+    (paper Fig. 2), a float32 scalar."""
+    alive = q.exp != zero_sentinel(n_bits)
+    neg = alive & (q.exp < 0)
+    return neg.sum().float() / torch.clamp(alive.sum(), min=1).float()
+
+
+def share(mask: torch.Tensor) -> torch.Tensor:
+    """Float32 share of True in ``mask`` as XLA evaluates ``jnp.mean``:
+    the count times the float32 reciprocal of the size (its simplifier
+    turns the division by a constant into that product)."""
+    n = torch.tensor(float(mask.numel()), dtype=torch.float32,
+                     device=mask.device)
+    return mask.sum().float() * (1.0 / n)
+
+
+def pruned_fraction(q: LogQuantized, n_bits: int = 4) -> torch.Tensor:
+    """Share of activations pruned to the zero sentinel (paper §VI-B)."""
+    return share(q.exp == zero_sentinel(n_bits))

@@ -5,10 +5,13 @@ Port of ``src/repro/core/shiftadd.py``.  An activation quantizes to
 ``s * 2^e`` (``core.logquant``), a weight to int8 ``w`` (``core.wquant``),
 and the D&S unit produces ``w << e`` for ``e >= 0`` and the truncating
 arithmetic shift ``floor(w / 2^|e|)`` for ``e < 0``: the low bits never
-leave memory.  :func:`shiftadd_matmul_bitplane` is the bit-plane regrouping
+leave memory.  :func:`shift_product` / :func:`shiftadd_matmul_elementwise`
+are that per-element oracle (the specification);
+:func:`shiftadd_matmul_bitplane` is the bit-plane regrouping
 ``y = sum_b sgn_b * (a_b @ plane_b)`` with ``a_b = s * 2^(b + e)`` where
-``b + e >= 0``; it is the plain version of the CUDA plane-skipping kernel
-(``kernels/bitplane_matmul``) and is used as nothing else.
+``b + e >= 0``, the plain version of the CUDA plane-skipping kernel
+(``kernels/bitplane_matmul``); :func:`shiftadd_matmul_exact` is the
+untruncated float product the NaHiD (full-fetch) datapath computes.
 
 :func:`quantized_linear_apply` is the projection every quantized GEMM of
 the model runs: scale the activation, LOG2-quantize it and run the
@@ -26,11 +29,37 @@ from typing import List, NamedTuple, Optional, Union
 import torch
 
 from repro_torch.core import bitplane as bp
-from repro_torch.core.logquant import LogQuantized, zero_sentinel
+from repro_torch.core.logquant import (LogQuantized, log2_dequantize,
+                                      zero_sentinel)
 from repro_torch.core.wquant import quantize_weights
 
-__all__ = ["shiftadd_matmul_bitplane", "QuantizedLinearParams", "QuantCtx",
-           "as_quant_ctx", "quantized_linear_init", "quantized_linear_apply"]
+__all__ = ["shift_product", "shiftadd_matmul_elementwise",
+           "shiftadd_matmul_bitplane", "shiftadd_matmul_exact",
+           "QuantizedLinearParams", "QuantCtx", "as_quant_ctx",
+           "quantized_linear_init", "quantized_linear_apply",
+           "calibrate_act_scale"]
+
+
+def shift_product(w: torch.Tensor, q: LogQuantized,
+                  n_bits: int = 4) -> torch.Tensor:
+    """``sign * Bitshift(w, e)`` (int32) with an arithmetic right shift
+    for ``e < 0``; the sentinel gives 0."""
+    w32 = w.to(torch.int32)
+    e = q.exp.to(torch.int32)
+    shifted = torch.where(e >= 0, w32 << torch.clamp(e, min=0),
+                          w32 >> torch.clamp(-e, min=0))
+    shifted = torch.where(e == zero_sentinel(n_bits), 0, shifted)
+    return q.sign.to(torch.int32) * shifted
+
+
+def shiftadd_matmul_elementwise(q: LogQuantized, w: torch.Tensor,
+                                n_bits: int = 4) -> torch.Tensor:
+    """Oracle ``y[..., n] = sum_k s_k * Bitshift(w[k, n], e_k)`` for codes
+    ``(..., K)`` and int8 ``w (K, N)``; builds ``(..., K, N)`` temporaries,
+    so only for validation and small layers."""
+    prod = shift_product(w.to(torch.int32)[None], LogQuantized(
+        exp=q.exp[..., None], sign=q.sign[..., None]), n_bits)
+    return prod.sum(dim=-2, dtype=torch.int32)
 
 
 def shiftadd_matmul_bitplane(q: LogQuantized, planes: torch.Tensor,
@@ -56,6 +85,12 @@ def shiftadd_matmul_bitplane(q: LogQuantized, planes: torch.Tensor,
             term = -term                      # two's-complement sign plane
         out = term if out is None else out + term
     return out.to(torch.int64).to(torch.int32)
+
+
+def shiftadd_matmul_exact(q: LogQuantized, w: torch.Tensor,
+                          n_bits: int = 4) -> torch.Tensor:
+    """Untruncated ``sum_k s_k w_k 2^{e_k}`` in float32 (NaHiD datapath)."""
+    return torch.matmul(log2_dequantize(q, n_bits), w.float())
 
 
 class QuantizedLinearParams(NamedTuple):
@@ -96,6 +131,35 @@ def as_quant_ctx(quant: Union[bool, QuantCtx, None]) -> Optional[QuantCtx]:
     if quant is True:
         return QuantCtx()
     raise TypeError(f"quant must be bool or QuantCtx, got {quant!r}")
+
+
+def calibrate_act_scale(x: torch.Tensor,
+                        percentile: float = 99.9) -> torch.Tensor:
+    """Per-tensor activation scale: the ``percentile`` magnitude of ``x``
+    mapped to 2^3, i.e. ``max(p, 1e-12) / 8``.
+
+    ``p`` is ``jnp.percentile``'s linear interpolation between sorted
+    neighbours, on any size (``torch.quantile`` refuses more than 2^24
+    elements).  The position ``percentile / 100 * (n - 1)`` is computed in
+    float32 as XLA compiles it, ``percentile * float32((n - 1) * 0.01)``,
+    so that large inputs take the reference's neighbours (past 2^24 the
+    orders part by whole positions).  A NaN anywhere gives NaN, as there.
+    """
+    a = x.float().abs().reshape(-1)
+    a = torch.where(torch.isnan(a).any(), float("nan"), a)
+    a = torch.sort(a).values
+    f32 = dict(dtype=torch.float32, device=a.device)
+    span = torch.tensor(float(a.numel()), **f32) - 1
+    pos = torch.tensor(percentile, **f32) * (
+        span * torch.tensor(0.01, **f32))
+    low, high = torch.floor(pos), torch.ceil(pos)
+    high_w = pos - low
+    low_w = 1 - high_w
+    last = a.numel() - 1
+    lo_v = a[torch.clamp(low, 0, last).long()]
+    hi_v = a[torch.clamp(high, 0, last).long()]
+    mag = lo_v * low_w + hi_v * high_w
+    return torch.clamp(mag, min=1e-12) / 8.0
 
 
 def quantized_linear_init(w: torch.Tensor, bias: Optional[torch.Tensor] = None,

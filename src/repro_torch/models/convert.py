@@ -10,6 +10,10 @@ it is, whatever its name: the ``qkv_bias`` and ``qk_norm`` leaves
 ``(R, 1)`` placeholders of a ``drop_float`` tree too.  The tests use it so
 both frameworks compute with the same weights and start a write from the
 same pool; on the card the port makes its own with ``init_params``.
+
+:func:`paper_params_from_numpy` does the same for a paper net's flat dict
+of arrays (``models/paper_nets.py``): the reference draws those weights
+inside its forwards and exposes no tree, so the tests replay its draws.
 """
 
 from __future__ import annotations
@@ -53,6 +57,18 @@ def params_from_numpy(cfg: ModelConfig, tree: Any, device=None) -> Any:
     """The reference tree (numpy leaves) as the port's params on ``device``."""
     _check_kinds(cfg)
     return _convert(tree, resolve_device(device))
+
+
+def paper_params_from_numpy(name: str, arrays: dict,
+                            device=None) -> dict:
+    """A paper net's weights and input, as numpy arrays under the keys of
+    ``paper_nets.init_paper_params(name, ...)``, as tensors on ``device``."""
+    from repro_torch.models.paper_nets import PAPER_ACTIVATIONS
+
+    if name not in PAPER_ACTIVATIONS:
+        raise KeyError(f"unknown paper net {name!r}")
+    dev = resolve_device(device)
+    return {k: _tensor(a, dev) for k, a in arrays.items()}
 
 
 def pool_from_numpy(tree: Any, device=None) -> Any:

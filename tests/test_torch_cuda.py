@@ -16,7 +16,8 @@ qwen3-32b's largest projection shapes; the mamba smoke config's serving
 programs (scheduler ticks with SSM snapshots, the one-shot generate), the
 deepseek-moe smoke config's (ticks that overflow expert capacity) and the
 qwen3 smoke config's (``qk_norm``) as CUDA graphs against
-``engine.eager()``.
+``engine.eager()``.  K1 also codes the paper nets' recorded GEMM inputs
+(narrow, AlexNet at its size), bit-equal to its plain version.
 
 Every test here is marked ``cuda`` and skips on a host without an NVIDIA
 GPU.  The file imports no JAX, so it runs where the card is:
@@ -1029,3 +1030,44 @@ def test_qwen3_graph_tick_and_generate_bit_equal_to_eager(cuda):
         assert torch.equal(toks, outs[0][0])
         for key in st:
             assert torch.equal(st[key], outs[0][1][key])
+
+
+# ---------------------------------------------------------------------------
+# the paper's evaluation: K1 on the paper nets' recorded GEMM inputs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("net", ["alexnet", "ptblm", "encoder-relu",
+                                 "encoder-gelu"])
+def test_paper_net_codes_bit_equal_to_plain(cuda, net):
+    """The nets narrow on the card (AlexNet at its fixed size): one K1
+    launch per recorded tensor, its codes bit-equal to the plain version
+    on the same activations, and ``measure`` on the card's codes equal
+    to ``measure`` on the same codes on the host."""
+    from repro_torch.models import paper_nets
+    from repro_torch.simulator import measure
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    if net == "alexnet":
+        acts = paper_nets.alexnet_activations(
+            paper_nets.init_paper_params("alexnet", gen, cuda))
+    elif net == "ptblm":
+        acts = paper_nets.ptblm_activations(paper_nets.init_paper_params(
+            "ptblm", gen, cuda, seq=4, hidden=32))
+    else:
+        acts = paper_nets._encoder_activations(
+            paper_nets._encoder_params(gen, cuda, 2, 128, 256, 8),
+            net.split("-")[1])
+    before = l2_ops.log2quant.launches
+    codes = [l2_ops.log2quant(a) for _, a in acts]
+    torch.cuda.synchronize()
+    assert l2_ops.log2quant.launches == before + len(acts)
+    for (name, a), q in zip(acts, codes):
+        assert a.is_cuda and a.dtype == torch.float32, name
+        ref = log2_quantize(a)
+        assert torch.equal(q.exp, ref.exp), name
+        assert torch.equal(q.sign, ref.sign), name
+    exp = torch.cat([q.exp.reshape(-1) for q in codes])
+    card = measure(LogQuantized(exp, torch.ones_like(exp)))
+    host = measure(LogQuantized(exp.cpu(), torch.ones_like(exp.cpu())))
+    assert (card.hist == host.hist).all()
+    assert card.zero_frac == host.zero_frac
