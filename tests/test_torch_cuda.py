@@ -16,8 +16,11 @@ qwen3-32b's largest projection shapes; the mamba smoke config's serving
 programs (scheduler ticks with SSM snapshots, the one-shot generate), the
 deepseek-moe smoke config's (ticks that overflow expert capacity) and the
 qwen3 smoke config's (``qk_norm``) as CUDA graphs against
-``engine.eager()``.  K1 also codes the paper nets' recorded GEMM inputs
-(narrow, AlexNet at its size), bit-equal to its plain version.
+``engine.eager()``.  K1's list call (``log2quant_many``) is held on
+ragged lists, misaligned views, lists longer than one launch and mixed
+dtypes, replayed from a CUDA graph, and on the paper nets' recorded GEMM
+inputs (narrow, AlexNet at its size) in one launch a net, bit-equal to
+its plain version.
 
 Every test here is marked ``cuda`` and skips on a host without an NVIDIA
 GPU.  The file imports no JAX, so it runs where the card is:
@@ -78,6 +81,88 @@ def test_log2quant_kernel_bit_equal_to_plain(cuda, dtype):
             assert q.exp.shape == x.shape
             assert torch.equal(q.exp, ref.exp)
             assert torch.equal(q.sign, ref.sign)
+
+
+def _ragged(dtype, cuda, shift=0):
+    """The lattice cut into entries of 0, 1, 3, 15, 16, 17, 1000 and 7 x 13
+    elements, then the whole lattice; with ``shift`` 1..3 each entry is a
+    contiguous view at that storage offset (a pointer off 16 bytes)."""
+    lat = _lattice().to(dtype).to(cuda)
+    out, o = [], 0
+    for shape in [(0,), (1,), (3,), (15,), (16,), (17,), (1000,), (7, 13)]:
+        n = math.prod(shape)
+        base = torch.cat([lat, lat])[o:o + n + shift].clone()
+        x = base[shift:].view(shape)
+        assert x.is_contiguous() and x.storage_offset() == shift
+        out.append(x)
+        o += n
+    return out + [lat]
+
+
+@pytest.mark.parametrize("shift", [0, 1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_log2quant_many_kernel_bit_equal_to_plain(cuda, dtype, shift):
+    """Ragged lists, empty and one-element entries, misaligned views: one
+    launch for the list, each view and the flat buffers bit-equal to the
+    plain version."""
+    xs = _ragged(dtype, cuda, shift)
+    for n_bits in range(2, 9):
+        before = l2_ops.log2quant.launches
+        flat, views = l2_ops.log2quant_many(xs, n_bits)
+        torch.cuda.synchronize()
+        assert l2_ops.log2quant.launches == before + 1
+        for x, v in zip(xs, views):
+            ref = log2_quantize(x, n_bits)
+            assert v.exp.shape == x.shape
+            assert torch.equal(v.exp, ref.exp)
+            assert torch.equal(v.sign, ref.sign)
+        ref = log2_quantize(torch.cat([x.reshape(-1) for x in xs]), n_bits)
+        assert torch.equal(flat.exp, ref.exp)
+        assert torch.equal(flat.sign, ref.sign)
+
+
+def test_log2quant_many_long_and_mixed_lists(cuda):
+    """210 entries (the decode step's activations) take more than one
+    launch; a list of three dtypes one launch per dtype; bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    xs = [torch.randn((4, (576, 1536)[i % 7 == 6]), generator=g, device=cuda)
+          for i in range(210)]
+    lat = _lattice().to(cuda)
+    mixed = [lat[:700].to(dt) for dt in (torch.float32, torch.bfloat16,
+                                         torch.float16)] * 2 + [lat[1:]]
+    for lst, launches in ((xs, -(-210 // l2_ops.MAX_ENTRIES)), (mixed, 3)):
+        before = l2_ops.log2quant.launches
+        flat, views = l2_ops.log2quant_many(lst)
+        torch.cuda.synchronize()
+        assert l2_ops.log2quant.launches == before + launches
+        for x, v in zip(lst, views):
+            ref = log2_quantize(x)
+            assert torch.equal(v.exp, ref.exp)
+            assert torch.equal(v.sign, ref.sign)
+        assert torch.equal(flat.exp, torch.cat([v.exp.reshape(-1)
+                                                for v in views]))
+
+
+def test_log2quant_many_graph_replay_equals_eager(cuda):
+    """The table travels in the kernel parameters: a captured list call
+    replays into its buffers what the eager call writes."""
+    xs = _ragged(torch.float32, cuda, 1) + _ragged(torch.bfloat16, cuda)
+    eager, _ = l2_ops.log2quant_many(xs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        l2_ops.log2quant_many(xs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        flat, _ = l2_ops.log2quant_many(xs)
+    flat.exp.fill_(0)
+    flat.sign.fill_(0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(flat.exp, eager.exp)
+    assert torch.equal(flat.sign, eager.sign)
 
 
 def _gemm(m, k, n, seed, scale=0.5, device="cuda"):
@@ -1040,9 +1125,10 @@ def test_qwen3_graph_tick_and_generate_bit_equal_to_eager(cuda):
                                  "encoder-gelu"])
 def test_paper_net_codes_bit_equal_to_plain(cuda, net):
     """The nets narrow on the card (AlexNet at its fixed size): one K1
-    launch per recorded tensor, its codes bit-equal to the plain version
-    on the same activations, and ``measure`` on the card's codes equal
-    to ``measure`` on the same codes on the host."""
+    launch for all recorded tensors, its codes bit-equal to the plain
+    version and to one launch per tensor on the same activations;
+    ``measure`` of the flat codes equal to ``measure`` of the per-tensor
+    codes concatenated, on the card and on the host."""
     from repro_torch.models import paper_nets
     from repro_torch.simulator import measure
 
@@ -1058,16 +1144,19 @@ def test_paper_net_codes_bit_equal_to_plain(cuda, net):
             paper_nets._encoder_params(gen, cuda, 2, 128, 256, 8),
             net.split("-")[1])
     before = l2_ops.log2quant.launches
-    codes = [l2_ops.log2quant(a) for _, a in acts]
+    flat, views = l2_ops.log2quant_many([a for _, a in acts])
     torch.cuda.synchronize()
-    assert l2_ops.log2quant.launches == before + len(acts)
-    for (name, a), q in zip(acts, codes):
+    assert l2_ops.log2quant.launches == before + 1
+    codes = [l2_ops.log2quant(a) for _, a in acts]
+    for (name, a), v, q in zip(acts, views, codes):
         assert a.is_cuda and a.dtype == torch.float32, name
         ref = log2_quantize(a)
-        assert torch.equal(q.exp, ref.exp), name
-        assert torch.equal(q.sign, ref.sign), name
+        for got in (v, q):
+            assert torch.equal(got.exp, ref.exp), name
+            assert torch.equal(got.sign, ref.sign), name
     exp = torch.cat([q.exp.reshape(-1) for q in codes])
-    card = measure(LogQuantized(exp, torch.ones_like(exp)))
-    host = measure(LogQuantized(exp.cpu(), torch.ones_like(exp.cpu())))
-    assert (card.hist == host.hist).all()
-    assert card.zero_frac == host.zero_frac
+    card = measure(LogQuantized(flat.exp, torch.ones_like(flat.exp)))
+    for other in (exp, exp.cpu()):
+        st = measure(LogQuantized(other, torch.ones_like(other)))
+        assert (card.hist == st.hist).all()
+        assert card.zero_frac == st.zero_frac
