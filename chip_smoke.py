@@ -246,11 +246,30 @@ Phases, in order; any failure exits non-zero before the result line:
    savings and the averages of Figs. 9-11 against NaHiD and Neurocube,
    each beside the paper's value.
 
+14. disaggregated serving (``serving/workers.py``, ``serving/router.py``):
+   prefill and decode engines, each its own ``ServeScheduler`` with its
+   own graphs, passing PageSpans.  Through the in-process
+   ``Router``, phase 7's trace and ``ServeConfig``: smollm-135m full width
+   in bf16 float with K3 (phase 7's graph run) and on packed planes with
+   ``kv_quant=True, kv_bits=4``, K2 and K4 (phase 9's); then
+   mamba2-780m, phase 10's configuration, over the first
+   ``MAMBA_ROUTED`` (8) requests of its trace.  Tokens, finish reasons
+   and errors equal those combined runs; launches by census x replays
+   over both engines' programs (K3 or K4 = layers x the decode engine's
+   forwards, K2 = projections x layers x both engines' forwards); the
+   decode fleet's tick p50/p95 beside the combined run's ticks with and
+   without a chunk (host clock around ``step_tick``), each span's bytes,
+   export and import ms, and one frame written, read and written again
+   to the same bytes.  Then ``run_disaggregated``: smollm-135m full width
+   across two spawned processes on the card, 8 requests (one over
+   ``max_len``, rejected), equal to the combined scheduler in this
+   process; the decode worker's tick ms and the bytes per frame.
+
 Prints a ``serving:`` line (graph and eager tok/s of phases 4, 7, 9, 10,
 11 and 12), a ``paper evaluation:`` line (phase 13's nets and figures), a
-``kernels:`` line, the JSON kernel table and, last, the result line
-``{"ok": true, "device": {...}}``.  It imports nothing of JAX and
-nothing of the JAX package.
+``disaggregated:`` line (phase 14), a ``kernels:`` line, the JSON kernel
+table and, last, the result line ``{"ok": true, "device": {...}}``.  It
+imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -317,6 +336,8 @@ PAPER_NETS = ["alexnet", "ptblm", "transformer", "bert-base", "bert-large"]
 PAPER_K1_LAUNCHES = {"alexnet": 1, "ptblm": 1, "transformer": 1,
                      "bert-base": 1, "bert-large": 1}
 FLIP_LIMIT = 1e-4
+# phase 14: mamba2-780m's routed requests (the first of phase 10's trace)
+MAMBA_ROUTED = 8
 # K1's list call and its per-tensor yardstick are timed with this many
 # calls captured in one graph (a replay's start, a few us, would otherwise
 # weigh on the small nets' single launch)
@@ -740,6 +761,13 @@ def main() -> None:
     # -- phase 13: the paper's evaluation at published sizes ---------------
     m13 = phase13(torch, dev, card, l2_ops, bm_ops, pa_ops)
     print(f"  (phase 13 done at {time.perf_counter() - t_main:.0f} s)")
+
+    # -- phase 14: disaggregated serving, in process and across two -------
+    m14 = phase14(torch, dev, card, l2_ops, bm_ops, pa_ops, {
+        "float": k3["combined"], "kv_quant": k4["combined"],
+        "mamba": m10["combined"]})
+    print(f"  (phase 14 done at {time.perf_counter() - t_main:.0f} s)")
+    print(f"disaggregated ({card}): {json.dumps(m14)}")
     serving = {"phase4": {tag: {
         "graph_tok_s": BATCH * NEW / r["t_graph"],
         "eager_tok_s": BATCH * NEW / r["t_eager"],
@@ -1538,6 +1566,23 @@ def serve_trace(vocab: int):
     return free + longs + sharers + repeats
 
 
+def serve_config(*, quant, kernel, stats, kv_quant=False):
+    """Phase 7's ``ServeConfig`` with the run's switches."""
+    from repro_torch.serving import ServeConfig
+
+    return ServeConfig(**SERVE, attn_kernel="pallas" if kernel else "off",
+                       quant="pallas" if quant else False, with_stats=stats,
+                       kv_quant=kv_quant, kv_bits=KV_BITS)
+
+
+def combined_record(res, run) -> dict:
+    """What phase 14 holds the disaggregated runs against: each request's
+    tokens, finish reason and error, and the combined run's ticks (the
+    caller adds its tick graph's replay, ``replay_tick_ms``)."""
+    return {"results": [(r.tokens, r.finish_reason, r.error) for r in res],
+            "ticks": run["ticks"]}
+
+
 def serve(torch, dev, cfg, trace, *, quant, kernel, stats, counters,
           on_tick=None, kv_quant=False, pack=False, profile=None,
           params=None):
@@ -1549,20 +1594,20 @@ def serve(torch, dev, cfg, trace, *, quant, kernel, stats, counters,
     table, the decode-only ticks' tokens and time, the kernel launches the
     graph replays ran (each program's capture census times its replays)
     and, with ``profile``, a profiler trace of the first tick that can only
-    decode (left out of the decode-only time)."""
+    decode (left out of the decode-only time), and every other tick's
+    host-clock seconds with whether it carried a chunk, whether it
+    captured a graph and its live slots."""
     from repro_torch.models.model import init_params
     from repro_torch.models.quantize import quantize_model_params
-    from repro_torch.serving import ServeConfig, ServeScheduler
+    from repro_torch.serving import ServeScheduler
 
     if params is None:
         params = init_params(cfg, generator=torch.Generator(
             device=dev).manual_seed(0), device=dev)
         if quant:
             params = quantize_model_params(cfg, params, pack=pack)
-    sc = ServeConfig(**SERVE, attn_kernel="pallas" if kernel else "off",
-                     quant="pallas" if quant else False, with_stats=stats,
-                     kv_quant=kv_quant, kv_bits=KV_BITS)
-    sched = ServeScheduler(cfg, params, sc)
+    sched = ServeScheduler(cfg, params, serve_config(
+        quant=quant, kernel=kernel, stats=stats, kv_quant=kv_quant))
     progs = sched.programs()
 
     def calls(*names):
@@ -1580,11 +1625,13 @@ def serve(torch, dev, cfg, trace, *, quant, kernel, stats, counters,
 
     # decode-only ticks (no admission prefill, no chunk): their tokens and
     # host-clock time (step_tick ends in the tick's one synchronisation)
-    run = {"tables": [], "decode_only": {"tokens": 0, "s": 0.0, "ticks": 0}}
+    run = {"tables": [], "decode_only": {"tokens": 0, "s": 0.0, "ticks": 0},
+           "ticks": []}
     dec = run["decode_only"]
     t0 = time.perf_counter()
     while sched.pending:
         before = (generated(), calls("chunk", "mixed"), calls("prefill"))
+        built = sum(len(p.entries()) for p in progs.values())
         # the first tick that can only decode: nothing queued, no slot
         # prefilling
         quiet = not sched._queue and all(
@@ -1599,6 +1646,13 @@ def serve(torch, dev, cfg, trace, *, quant, kernel, stats, counters,
         dt = time.perf_counter() - t1
         if profiled:
             run["profiled_s"] = dt
+        else:
+            # each tick's host time, whether it carried a chunk, whether
+            # a program captured its graph in it, and its live slots
+            run["ticks"].append((dt, before[1] != calls("chunk", "mixed"),
+                                 built != sum(len(p.entries())
+                                              for p in progs.values()),
+                                 slots))
         if not profiled and before[1:] == (calls("chunk", "mixed"),
                                            calls("prefill")):
             dec["tokens"] += generated() - before[0]
@@ -1959,8 +2013,12 @@ def phase7(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
                 f"bf16 {tag} {mode} ({c.n_layers} layers)", res, wall, run,
                 sched)
             if mode == "graph":
+                if not quant:
+                    out["combined"] = combined_record(res, run)
                 program_report(sched, f"bf16 {tag} graph")
                 rep = tick_replay_ms(torch, sched)
+                if not quant:
+                    out["combined"]["replay_tick_ms"] = rep
                 out["serve"][f"{tag}/graph"]["replay_step_ms"] = \
                     rep / sched.tick_steps
                 print(f"    tick graph replayed alone: {rep:.3f} ms device "
@@ -2333,6 +2391,7 @@ def phase9(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
                   f"events, {card})")
             out_launches = launches["paged_attention_quant"]
             st = sched.prefix_cache_stats()
+            combined = dict(combined_record(res, run), replay_tick_ms=rep)
     held_equal(f"phase 9 bf16, {CUT_LAYERS} layers", runs["cut/graph"],
                runs["cut/eager"])
     gd, ed = (torch.stack(tick_digests[m]).cpu()
@@ -2460,8 +2519,8 @@ def phase9(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
           f"scaled_dot_product_attention {lib_ms:.4f} ms; dequantize the "
           f"whole pool, then _paged_gather + scaled_dot_product_attention "
           f"{pool_ms:.4f} ms")
-    return dict(launches=out_launches, serve=serve_out, ms=ms,
-                plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+    return dict(launches=out_launches, serve=serve_out, combined=combined,
+                ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=lib_ms, context_whole_pool_ms=pool_ms,
                 eager_ms=eager, max_abs_err=err,
@@ -2651,21 +2710,24 @@ def mamba_step_bytes(cfg, batch: int, tile_fraction: float) -> dict:
 
 
 def one_shot(torch, dev, cfg, prompt, variants, kernels, per_fwd,
-             label) -> dict:
+             label, cut=False) -> dict:
     """Each ``(tag, params, quant, stats)`` of ``variants`` through
     ``greedy_generate`` (BATCH x PROMPT, NEW tokens) as one program: its
     first call captures, the second replays (launches = census x replays;
     no wrapper counts a launch), then the same body under
     ``engine.eager()``.  Held equal in tokens and stats; K2 launches
     ``per_fwd`` x NEW when quantized (by census x replays and by the
-    wrappers' counts), K1, K3 and K4 none.  Prints and returns each run."""
+    wrappers' counts), K1, K3 and K4 none.  With ``cut`` the eager run and
+    the graph it is held against take the model's first ``CUT_LAYERS``
+    layers (phases 10-12: a full-depth eager run took 6-25 s on a slow
+    host), as the schedulers' checks do.  Prints and returns each run."""
     from repro_torch.serving import engine
 
     runs = {}
     new = BATCH * NEW
     for tag, p, quant, stats in variants:
-        def call(p=p, quant=quant, stats=stats):
-            return engine.greedy_generate(cfg, p, prompt, NEW, quant=quant,
+        def call(c=cfg, p=p, quant=quant, stats=stats):
+            return engine.greedy_generate(c, p, prompt, NEW, quant=quant,
                                           with_stats=stats)
         _, t_cap = sync_time(torch, call)
         (entry,) = engine.generate_fn(cfg, p, NEW, 0.0, quant, None, stats,
@@ -2678,36 +2740,50 @@ def one_shot(torch, dev, cfg, prompt, variants, kernels, per_fwd,
                     for k, n in entry.census.items()}
         check(all(k.launches == 0 for k in kernels),
               f"{label} {tag}: a kernel ran outside the graph replay")
+        graph_out, layers = out, cfg.n_layers
+        if cut:
+            ccfg, cparams = first_layers(cfg, p, CUT_LAYERS)
+            layers = ccfg.n_layers
+            graph_out = call(ccfg, cparams)        # captures, then replays
+            for k in kernels:
+                k.launches = 0
         with engine.eager():
-            eout, t_eager = sync_time(torch, call)
+            eout, t_eager = sync_time(
+                torch, (lambda: call(ccfg, cparams)) if cut else call)
         counted = {k.__name__: k.launches for k in kernels}
         want = per_fwd * NEW if quant else 0
-        for got, how in ((replayed, "replayed"), (counted, "eager")):
-            check(got["bitplane_matmul"] == want and got["log2quant"] == 0
+        for got, how, n in ((replayed, "replayed", want),
+                            (counted, "eager", want // cfg.n_layers * layers)):
+            check(got["bitplane_matmul"] == n and got["log2quant"] == 0
                   and got["paged_attention"] == 0
                   and got["paged_attention_quant"] == 0,
-                  f"{label} {tag} {how}: launches {got}, expected K2 {want} "
+                  f"{label} {tag} {how}: launches {got}, expected K2 {n} "
                   f"and no other kernel")
         toks, st = out if stats else (out, None)
+        gtoks, gst = graph_out if stats else (graph_out, None)
         etoks, est = eout if stats else (eout, None)
-        check(torch.equal(toks, etoks) and (not stats or all(
-            torch.equal(st[k], est[k]) for k in st)),
-            f"{label} {tag}: graph tokens or stats differ from eager's")
+        check(torch.equal(gtoks, etoks) and (not stats or all(
+            torch.equal(gst[k], est[k]) for k in gst)),
+            f"{label} {tag}: graph tokens or stats differ from eager's "
+            f"({layers} layers)")
         check(toks.shape == (BATCH, NEW) and bool((toks >= 0).all())
               and bool((toks < cfg.vocab_size).all()),
               f"{label} {tag}: bad tokens")
         runs[tag] = r = dict(toks=toks, stats=st, t_cap=t_cap,
                              t_graph=t_graph, t_eager=t_eager,
                              replayed=replayed, capture_ms=entry.capture_ms,
-                             nodes=engine.graph_nodes(entry))
+                             nodes=engine.graph_nodes(entry),
+                             eager_layers=layers)
         nodes = r["nodes"]
         print(f"  one-shot {tag}: graph replay {t_graph:.4f} s = "
-              f"{new / t_graph:.1f} tok/s; engine.eager() {t_eager:.4f} s = "
-              f"{new / t_eager:.1f} tok/s; first call {t_cap:.3f} s "
-              f"(capture {entry.capture_ms:.1f} ms); graph kernel nodes "
+              f"{new / t_graph:.1f} tok/s; engine.eager() "
+              + (f"at the first {layers} layers " if cut else "")
+              + f"{t_eager:.4f} s = {new / t_eager:.1f} tok/s; first call "
+              f"{t_cap:.3f} s (capture {entry.capture_ms:.1f} ms); graph "
+              f"kernel nodes "
               + (f"{nodes[0]} of {nodes[1]}" if nodes else "not available")
               + f"; launches replayed {replayed}; tokens and stats equal to "
-              f"engine.eager()'s")
+              f"engine.eager()'s" + (f" at {layers} layers" if cut else ""))
     return runs
 
 
@@ -2763,7 +2839,8 @@ def phase10(torch, dev, card, mb, l2_ops, bm_ops, pa_ops) -> dict:
     runs = one_shot(torch, dev, cfg, prompt, (
         ("float", mb["params"], False, False),
         ("quant+stats", mb["qparams"], True, True),
-        ("packed", mb["pparams"], True, False)), kernels, per_fwd, "mamba")
+        ("packed", mb["pparams"], True, False)), kernels, per_fwd, "mamba",
+        cut=True)
     check(torch.equal(runs["packed"]["toks"], runs["quant+stats"]["toks"]),
           "mamba: packed-plane tokens differ from unpacked")
     tile = runs["quant+stats"]["stats"]["plane_traffic_fraction"].cpu()
@@ -2877,6 +2954,7 @@ def phase10(torch, dev, card, mb, l2_ops, bm_ops, pa_ops) -> dict:
                   f"{sched._radix._n_snapshots}")
             tile_r = sum(r.plane_traffic_fraction for r in res) / len(res)
             check(0 < tile_r <= 1, f"mamba traffic fraction {tile_r}")
+            combined = dict(combined_record(res, run), replay_tick_ms=rep)
     check(taken["cut/graph"] == taken["cut/eager"],
           f"mamba snapshots: {taken}")
     held_equal(f"mamba packed quant+stats, {CUT_LAYERS} layers",
@@ -2922,7 +3000,7 @@ def phase10(torch, dev, card, mb, l2_ops, bm_ops, pa_ops) -> dict:
           f"from shared pages and SSM snapshots; tokens equal the same "
           f"requests served without the prefix cache")
     print(f"  (phase 10 took {time.perf_counter() - t_phase:.0f} s)")
-    return {"serve": serve_out,
+    return {"serve": serve_out, "combined": combined,
             "launches": runs["quant+stats"]["replayed"]["bitplane_matmul"]}
 
 
@@ -3072,7 +3150,8 @@ def deepseek_full(torch, dev, card, kernels, bm_ops, pa_ops) -> dict:
     # -- one-shot: float, packed planes with stats; graph and eager -------
     runs = one_shot(torch, dev, cfg, prompt, (
         ("float", params, False, False),
-        ("packed+stats", pparams, True, True)), kernels, per_fwd, "deepseek")
+        ("packed+stats", pparams, True, True)), kernels, per_fwd, "deepseek",
+        cut=True)
     tile = runs["packed+stats"]["stats"]["plane_traffic_fraction"].cpu()
     elem = runs["packed+stats"]["stats"]["element_traffic_fraction"].cpu()
     check(bool((tile[:-1] > 0).all() and (tile[:-1] <= 1).all()
@@ -3430,7 +3509,8 @@ def phase12(torch, dev, card, l2_ops, bm_ops, pa_ops) -> dict:
 
     # -- float: one-shot, one decode step, the matmul context -------------
     runs = one_shot(torch, dev, cfg, prompt, (
-        ("float", params, False, False),), kernels, per_fwd, "qwen3")
+        ("float", params, False, False),), kernels, per_fwd, "qwen3",
+        cut=True)
     steps = step_programs(torch, dev, cfg, prompt, (
         ("float", params, False),), per_fwd)
     blk = params["blocks"][0]
@@ -3474,7 +3554,8 @@ def phase12(torch, dev, card, l2_ops, bm_ops, pa_ops) -> dict:
 
     # -- packed planes alone: one-shot with stats, one decode step ---------
     runs.update(one_shot(torch, dev, cfg, prompt, (
-        ("packed+stats", pparams, True, True),), kernels, per_fwd, "qwen3"))
+        ("packed+stats", pparams, True, True),), kernels, per_fwd, "qwen3",
+        cut=True))
     tile = runs["packed+stats"]["stats"]["plane_traffic_fraction"].cpu()
     elem = runs["packed+stats"]["stats"]["element_traffic_fraction"].cpu()
     check(bool((tile[:-1] > 0).all() and (tile[:-1] <= 1).all()
@@ -4041,6 +4122,302 @@ def phase13(torch, dev, card, l2_ops, bm_ops, pa_ops) -> dict:
                        "per_tensor_ms", "per_tensor_launches", "plain_ms",
                        "bound_ms")}
                        for m in PAPER_NETS}}}
+
+
+def span_bytes(span) -> int:
+    """A span's array bytes: prompt, logits row, pages, state."""
+    return (span.prompt.nbytes + span.logits.nbytes
+            + sum(a.nbytes for g in span.layers for a in g.values()))
+
+
+def p50_p95(seconds) -> list:
+    """The 50th and 95th percentiles of host times, in ms."""
+    import numpy as np
+
+    ms = np.asarray(seconds, dtype=float) * 1e3
+    return [float(np.percentile(ms, 50)), float(np.percentile(ms, 95))]
+
+
+def routed(torch, cfg, params, sc, trace, kernels) -> dict:
+    """Serve ``trace`` through the in-process ``Router`` (CUDA graphs in
+    both engines), every count set to 0 just before the run and read just
+    after.  Each span's export and import are timed (host clock between
+    two synchronisations, so the router's own run pays them), its bytes
+    counted, and the first span's frame written, read and written again
+    to the same bytes.  Returns results, router, wall seconds, launches
+    (counted by the wrappers; replayed: census x replays over both
+    engines' programs), each engine's forwards and the span records."""
+    from repro_torch.serving import PageSpan, Router
+
+    router = Router(cfg, params, sc)
+    spans = {"bytes": [], "export_ms": [], "import_ms": []}
+
+    def timed(fn, key):
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            spans[key].append((time.perf_counter() - t0) * 1e3)
+            if key == "export_ms":
+                if not spans["bytes"]:
+                    blob = out.to_bytes()
+                    check(PageSpan.from_bytes(blob).to_bytes() == blob,
+                          "a span's frame does not read back to itself")
+                spans["bytes"].append(span_bytes(out))
+            return out
+        return call
+
+    router.prefill._export = timed(router.prefill._export, "export_ms")
+    router.decode._import = timed(router.decode._import, "import_ms")
+    live = []                           # the decode fleet's live slots
+    step = router.decode.step
+
+    def counted_step():
+        live.append(router.decode.active)
+        return step()
+
+    router.decode.step = counted_step
+    for p in trace:
+        router.submit(p, max_new=SERVE_NEW)
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = router.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counted = {k.__name__: k.launches for k in kernels}
+    replayed, fwd = {k.__name__: 0 for k in kernels}, {}
+    for role, eng in (("prefill", router.prefill), ("decode", router.decode)):
+        progs = eng.scheduler.programs()
+        for prog in progs.values():
+            for k, n in prog.replayed_launches().items():
+                replayed[k] = replayed.get(k, 0) + n
+        ts = eng.scheduler.tick_steps
+        fwd[role] = {
+            "decode": ts * (progs["tick"].calls + progs["mixed"].calls),
+            "chunk": progs["chunk"].calls + progs["mixed"].calls,
+            "prefill": progs["prefill"].calls}
+    check(fwd["prefill"]["decode"] == 0 and fwd["decode"]["chunk"]
+          == fwd["decode"]["prefill"] == 0,
+          f"an engine ran the other's work: forwards {fwd}")
+    return dict(res=res, router=router, wall=wall, counted=counted,
+                replayed=replayed, fwd=fwd, spans=spans, live=live,
+                replay_tick_ms=tick_replay_ms(torch, router.decode.scheduler))
+
+
+def same_as_combined(label, res, want) -> None:
+    """Tokens, finish reasons and errors equal the combined run's."""
+    got = [(r.tokens, r.finish_reason, r.error) for r in res]
+    diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    first = None
+    if diff:
+        a, b = got[diff[0]][0], want[diff[0]][0]
+        first = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+    check(len(got) == len(want) and not diff,
+          f"{label}: {len(got)} results, requests {diff} differ from the "
+          f"combined scheduler's (request {diff[:1]}: first differing token "
+          f"{first})")
+
+
+def report_routed(label, r, combined, cfg, card) -> dict:
+    """Print and return a routed run's numbers beside the combined run's
+    tick times."""
+    router, res, spans = r["router"], r["res"], r["spans"]
+    total = sum(len(x.tokens) for x in res)
+    # ticks that captured a graph are left out of the percentiles: the
+    # decode engine captures its one tick program on its first tick
+    check(router.decode.scheduler.compile_stats()["tick"] == 1,
+          f"{label}: the decode engine built more than one tick graph")
+    dec = p50_p95(router.decode_tick_times[1:])
+    chunk = [dt for dt, c, cap, _ in combined["ticks"] if c and not cap]
+    plain = [(dt, n) for dt, c, cap, n in combined["ticks"]
+             if not c and not cap]
+    captures = sum(cap for _, _, cap, _ in combined["ticks"])
+    live = r["live"][1:]
+    out = {"tok_s": total / r["wall"], "wall_s": r["wall"],
+           "decode_tick_ms_p50_p95": dec,
+           "decode_ticks": len(router.decode_tick_times),
+           "decode_capture_tick_ms": router.decode_tick_times[0] * 1e3,
+           "decode_live_slots_mean": sum(live) / len(live),
+           "decode_replay_tick_ms": r["replay_tick_ms"],
+           "combined_chunk_tick_ms_p50_p95": p50_p95(chunk),
+           "combined_decode_tick_ms_p50_p95": p50_p95(
+               [dt for dt, _ in plain]),
+           "combined_decode_live_slots_mean": sum(
+               n for _, n in plain) / len(plain),
+           "combined_replay_tick_ms": combined["replay_tick_ms"],
+           "combined_ticks": [len(chunk), len(plain)],
+           "spans": len(spans["bytes"]), "span_bytes": sum(spans["bytes"]),
+           "export_ms": spans["export_ms"], "import_ms": spans["import_ms"]}
+    print(f"  {label} ({cfg.n_layers} layers): {len(res)} requests, "
+          f"{total} tokens in {r['wall']:.3f} s = {out['tok_s']:.2f} tok/s "
+          f"(captures, exports and imports included); forwards {r['fwd']}; "
+          f"launches replayed {r['replayed']}, counted by the wrappers in "
+          f"the warm-ups and captures {r['counted']}")
+    print(f"    compile_stats prefill "
+          f"{router.prefill.scheduler.compile_stats()}, decode "
+          f"{router.decode.scheduler.compile_stats()}")
+    print(f"    decode fleet: {out['decode_ticks']} ticks, the first "
+          f"(capture) {out['decode_capture_tick_ms']:.1f} ms, the others "
+          f"p50/p95 {dec[0]:.3f}/{dec[1]:.3f} ms; combined scheduler (host "
+          f"clock around step_tick), {captures} ticks with a capture left "
+          f"out: {len(chunk)} ticks with a chunk p50/p95 "
+          f"{out['combined_chunk_tick_ms_p50_p95'][0]:.3f}/"
+          f"{out['combined_chunk_tick_ms_p50_p95'][1]:.3f} ms, {len(plain)} "
+          f"without p50/p95 {out['combined_decode_tick_ms_p50_p95'][0]:.3f}/"
+          f"{out['combined_decode_tick_ms_p50_p95'][1]:.3f} ms ({card})")
+    print(f"    live slots a tick, mean: decode fleet "
+          f"{out['decode_live_slots_mean']:.2f}, combined ticks without a "
+          f"chunk {out['combined_decode_live_slots_mean']:.2f}; the tick "
+          f"graph replayed alone on the drained pool (CUDA events): decode "
+          f"engine {r['replay_tick_ms']:.3f} ms, combined scheduler "
+          f"{combined['replay_tick_ms']:.3f} ms")
+    print(f"    spans: {out['spans']}, {out['span_bytes']} bytes in all "
+          f"(min {min(spans['bytes'])}, max {max(spans['bytes'])}); export "
+          f"ms {[round(x, 3) for x in spans['export_ms']]}; import ms "
+          f"{[round(x, 3) for x in spans['import_ms']]}")
+    return out
+
+
+def phase14(torch, dev, card, l2_ops, bm_ops, pa_ops, combined) -> dict:
+    """Disaggregated serving on the card: smollm-135m (float with K3, then
+    packed planes with kv_quant and K4) and mamba2-780m through the
+    in-process ``Router``, then smollm-135m across two spawned processes;
+    every run's tokens equal the combined scheduler's (phases 7, 9 and 10
+    for the in-process runs)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.models.quantize import quantize_model_params
+    from repro_torch.serving import ServeScheduler, run_disaggregated
+
+    t_phase = time.perf_counter()
+    kernels = (l2_ops.log2quant, bm_ops.bitplane_matmul,
+               pa_ops.paged_attention, pa_ops.paged_attention_quant)
+    cfg = get_config("smollm-135m")
+    trace = serve_trace(cfg.vocab_size)
+    print(f"phase 14: disaggregated serving (prefill and decode engines, "
+          f"PageSpans between them), phase 7's trace and ServeConfig; on "
+          f"{card}")
+    params = init_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    out = {}
+
+    # (a) bf16 float, K3 on the dense paged pool: phase 7's graph run
+    r = routed(torch, cfg, params, serve_config(
+        quant=False, kernel=True, stats=False), trace, kernels)
+    same_as_combined("smollm float K3", r["res"], combined["float"]["results"])
+    n_dec = r["fwd"]["decode"]["decode"]
+    check(r["replayed"]["paged_attention"] == cfg.n_layers * n_dec
+          and r["replayed"]["paged_attention_quant"]
+          == r["replayed"]["bitplane_matmul"]
+          == r["replayed"]["log2quant"] == 0,
+          f"float router: launches {r['replayed']}, expected K3 "
+          f"{cfg.n_layers} x {n_dec} decode forwards and no other kernel")
+    out["float_k3"] = report_routed("smollm float K3, router", r,
+                                    combined["float"], cfg, card)
+    out["float_k3"]["launches"] = r["replayed"]
+    print(f"    tokens, finish reasons and rejects equal phase 7's combined "
+          f"graph run for all {len(trace)} requests")
+    del r
+
+    # (b) packed planes with kv_quant: K2 and K4, phase 9's graph run
+    pparams = quantize_model_params(cfg, params, pack=True)
+    r = routed(torch, cfg, pparams, serve_config(
+        quant=True, kernel=True, stats=False, kv_quant=True), trace, kernels)
+    same_as_combined("smollm packed kv_quant K4", r["res"],
+                     combined["kv_quant"]["results"])
+    n_fwd = sum(sum(f.values()) for f in r["fwd"].values())
+    n_dec = r["fwd"]["decode"]["decode"]
+    check(r["replayed"]["paged_attention_quant"] == cfg.n_layers * n_dec
+          and r["replayed"]["bitplane_matmul"]
+          == cfg.n_layers * len(PROJ) * n_fwd
+          and r["replayed"]["paged_attention"]
+          == r["replayed"]["log2quant"] == 0,
+          f"quantized router: launches {r['replayed']}, expected K4 "
+          f"{cfg.n_layers} x {n_dec} decode forwards, K2 "
+          f"{cfg.n_layers * len(PROJ)} x {n_fwd} forwards")
+    out["packed_kv_quant_k4"] = report_routed(
+        "smollm packed kv_quant K2+K4, router", r, combined["kv_quant"], cfg,
+        card)
+    out["packed_kv_quant_k4"]["launches"] = r["replayed"]
+    print(f"    tokens, finish reasons and rejects equal phase 9's combined "
+          f"graph run for all {len(trace)} requests")
+    del r, pparams
+    gc_cuda(torch)
+
+    # (c) two processes on the card: prefill and decode workers rebuild
+    # smollm-135m from seed 0; eight requests, one over max_len (rejected)
+    rng = np.random.default_rng(14)
+    over = rng.integers(0, cfg.vocab_size, size=SERVE["max_len"] - SERVE_NEW
+                        + 1).astype(np.int32)
+    # no two of them share a prefix: the combined scheduler admits all
+    # eight at once, the prefill worker one after another
+    two = trace[:5] + [over] + trace[8:10]
+    sc = serve_config(quant=False, kernel=True, stats=False)
+    sched = ServeScheduler(cfg, params, sc)
+    for p in two:
+        sched.submit(p, max_new=SERVE_NEW)
+    want = [(x.tokens, x.finish_reason, x.error) for x in sched.run()]
+    check(want[5][1] == "rejected" and want[5][2],
+          "the over-long request was not rejected")
+    del sched, params
+    gc_cuda(torch)
+    frames = []
+    t0 = time.perf_counter()
+    got, ticks = run_disaggregated(
+        [(p, SERVE_NEW, None) for p in two], arch="smollm-135m", config=sc,
+        smoke=False, f32=False, seed=0, device="cuda", timeout=300.0,
+        frames=frames)
+    wall = time.perf_counter() - t0
+    check([g[0] for g in got] == list(range(len(two)))
+          and [(t, r_, e) for _, t, r_, e in got] == want,
+          f"two processes: results differ from the combined scheduler's: "
+          f"{[(g[0], g[2]) for g in got]}")
+    tt = p50_p95(ticks[1:])             # the first tick captures
+    out["two_process"] = {"wall_s": wall, "decode_ticks": len(ticks),
+                          "decode_capture_tick_ms": ticks[0] * 1e3,
+                          "decode_tick_ms_p50_p95": tt,
+                          "frame_bytes": frames}
+    print(f"  two processes (spawn), {len(two)} requests (one over "
+          f"max_len, rejected prefill-side): tokens, finish reasons and "
+          f"errors equal the combined scheduler in this process; {wall:.1f} "
+          f"s with both workers' start-up, model builds and captures; the "
+          f"decode worker's {len(ticks)} ticks: the first (capture) "
+          f"{ticks[0] * 1e3:.1f} ms, the others p50/p95 {tt[0]:.3f}/"
+          f"{tt[1]:.3f} ms; bytes per frame {frames}")
+
+    # (d) mamba2-780m: phase 10's graph run, its first MAMBA_ROUTED
+    # requests (prefix-free: none of them can hit)
+    mcfg = get_config("mamba2-780m")
+    mparams = quantize_model_params(mcfg, init_params(
+        mcfg, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev), pack=True)
+    mtrace = serve_trace(mcfg.vocab_size)[:MAMBA_ROUTED]
+    r = routed(torch, mcfg, mparams, serve_config(
+        quant=True, kernel=False, stats=True), mtrace, kernels)
+    same_as_combined("mamba2-780m packed", r["res"],
+                     combined["mamba"]["results"][:MAMBA_ROUTED])
+    n_fwd = sum(sum(f.values()) for f in r["fwd"].values())
+    check(r["replayed"]["bitplane_matmul"]
+          == mcfg.n_layers * len(MAMBA_PROJ) * n_fwd
+          and r["replayed"]["log2quant"] == r["replayed"]["paged_attention"]
+          == r["replayed"]["paged_attention_quant"] == 0,
+          f"mamba router: launches {r['replayed']}, expected K2 "
+          f"{mcfg.n_layers * len(MAMBA_PROJ)} x {n_fwd} forwards")
+    out["mamba"] = report_routed("mamba2-780m packed quant+stats, router",
+                                 r, combined["mamba"], mcfg, card)
+    out["mamba"]["launches"] = r["replayed"]
+    print(f"    tokens equal phase 10's combined graph run for its first "
+          f"{MAMBA_ROUTED} requests")
+    del r, mparams
+    gc_cuda(torch)
+    print(f"  (phase 14 took {time.perf_counter() - t_phase:.0f} s)")
+    return out
 
 
 if __name__ == "__main__":

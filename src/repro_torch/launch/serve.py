@@ -1,5 +1,5 @@
 """Serving CLI (port of ``src/repro/launch/serve.py`` without its mesh
-and disaggregation options).
+options).
 
 One-shot mode: random weights from ``--seed``, a random prompt batch,
 prefill, then the decode loop; prints the prefill time, decode tok/s, the
@@ -20,7 +20,13 @@ package's::
         --continuous --requests 16 --max-slots 4 --new-tokens 16 \
         [--chunked [auto|always]] [--chunk-len N] [--paged] [--page-len N] \
         [--prefix-cache] [--attn-kernel] [--attn-splits N] [--quant] \
-        [--kv-quant [BITS]] [--config serve.json] [--dump-config [PATH]]
+        [--kv-quant [BITS]] [--config serve.json] [--dump-config [PATH]] \
+        [--disaggregate]
+
+``--disaggregate`` serves the same trace through the prefill/decode
+router (``serving/router.py``) instead of the combined scheduler: the
+same tokens, the decode fleet's ticks timed apart from prompt ingestion.
+It needs a paged config.
 
 ``--arch`` takes every configuration of ``repro_torch.configs`` (the
 reference's ten); ``--kv-quant`` on a model without an attention layer
@@ -116,14 +122,22 @@ def _serve_continuous(cfg, params, args, dev):
     """Submit a seeded trace, drain it, report tok/s, latency, plane
     traffic and prefix-cache hits.  With chunking the trace draws prompts
     up to 3x ``--prompt-len``; with the prefix cache 3 in 4 prompts start
-    with a shared half-length prefix."""
+    with a shared half-length prefix.  ``--disaggregate`` serves it
+    through the prefill/decode router."""
+    from repro_torch.serving.router import Router
     from repro_torch.serving.scheduler import ServeScheduler
 
     config = _load_serve_config(args)
     chunked = config.chunked
     long_max = ((3 * args.prompt_len) if chunked != "off"
                 else args.prompt_len)
-    sched = ServeScheduler(cfg, params, config, device=dev)
+    if args.disaggregate:
+        if not config.paged:
+            raise SystemExit("--disaggregate requires a paged config "
+                             "(add --paged, or paged=true in --config)")
+        sched = Router(cfg, params, config, device=dev)
+    else:
+        sched = ServeScheduler(cfg, params, config, device=dev)
     rng = np.random.default_rng(args.seed)
     prefix = (rng.integers(0, cfg.vocab_size, size=max(args.prompt_len // 2,
                                                        config.page_len))
@@ -147,11 +161,25 @@ def _serve_continuous(cfg, params, args, dev):
                 + (f"+kernel/s{config.attn_splits}"
                    if config.attn_kernel != "off" else "")
                 + (f"+kvq/{config.kv_bits}b" if config.kv_quant else ""))
-    print(f"[serve] {cfg.name} on {dev}: continuous batching{tag} — "
+    if args.disaggregate:
+        mode = "disaggregated"
+        compile_stats = {"prefill": sched.prefill.scheduler.compile_stats(),
+                         "decode": sched.decode.scheduler.compile_stats()}
+        stats_sched = sched.prefill.scheduler
+    else:
+        mode = "continuous batching"
+        compile_stats = sched.compile_stats()
+        stats_sched = sched
+    print(f"[serve] {cfg.name} on {dev}: {mode}{tag} — "
           f"{len(results)} requests, {config.max_slots} slots, "
           f"tick={config.tick_steps}: {total} tokens in {dt:.3f}s "
           f"({total / max(dt, 1e-9):.1f} tok/s, {_path(dev)})")
-    print(f"[serve] compile_stats: {sched.compile_stats()}")
+    print(f"[serve] compile_stats: {compile_stats}")
+    if args.disaggregate and sched.decode_tick_times:
+        tt = np.asarray(sched.decode_tick_times) * 1e3
+        print(f"[serve] decode fleet: {len(tt)} isolated ticks, p50/p95 "
+              f"{np.percentile(tt, 50):.1f}/{np.percentile(tt, 95):.1f} ms "
+              f"(prefill work excluded by construction)")
     served = [r for r in results if r.finish_reason != "rejected"]
     if served:
         ttft = [r.first_token_time - r.submit_time for r in served]
@@ -170,7 +198,7 @@ def _serve_continuous(cfg, params, args, dev):
         print(f"[serve] per-request plane_traffic_fraction: {tile:.3f} "
               f"tile-granular, {elem:.3f} element-granular")
     if config.prefix_cache:
-        st = sched.prefix_cache_stats()
+        st = stats_sched.prefix_cache_stats()
         print(f"[serve] prefix cache: hit_rate {st['hit_rate']:.3f} "
               f"({int(st['cached_tokens'])}/{int(st['prompt_tokens'])} "
               f"prompt tokens from shared pages, "
@@ -278,6 +306,11 @@ def main(argv=None):
                     metavar="PATH",
                     help="print (or write to PATH) the ServeConfig JSON the "
                          "flags derive, then exit")
+    ap.add_argument("--disaggregate", action="store_true",
+                    help="continuous mode through the prefill/decode router "
+                         "instead of the combined scheduler: the same "
+                         "tokens, decode ticks apart from prompt ingestion "
+                         "(needs a paged config)")
     args = ap.parse_args(argv)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.kv_quant is not None and not any(base_kind(k) == "attn"

@@ -1,6 +1,8 @@
 """Serving: one-shot generation, the continuous-batching slot scheduler
-over a dense or paged KV pool, its config, and the program type that runs
-their steps as CUDA graphs (mirrors ``src/repro/serving``)."""
+over a dense or paged KV pool, its config, the program type that runs
+their steps as CUDA graphs, and disaggregated serving (prefill and decode
+engines passing ``PageSpan`` frames, in one process or two; mirrors
+``src/repro/serving``)."""
 
 from repro_torch.serving.config import SCHEMA_VERSION, ServeConfig
 from repro_torch.serving.engine import (Program, clear_generate_cache,
@@ -14,9 +16,11 @@ from repro_torch.serving.engine import (Program, clear_generate_cache,
                                         set_generate_cache_size)
 from repro_torch.serving.kvpool import (PagePool, PrefixHit, RadixCache,
                                         blocks_for_tokens)
+from repro_torch.serving.router import Router, run_disaggregated
 from repro_torch.serving.scheduler import (Request, RequestResult,
                                            ServeScheduler, bucket_for,
                                            round_pool_len)
+from repro_torch.serving.workers import DecodeEngine, PageSpan, PrefillEngine
 
 __all__ = ["SCHEMA_VERSION", "ServeConfig", "Program",
            "clear_generate_cache", "compiled_size", "eager", "generate_fn",
@@ -26,4 +30,5 @@ __all__ = ["SCHEMA_VERSION", "ServeConfig", "Program",
            "make_slot_serve_step", "reference_generate", "PagePool",
            "PrefixHit", "RadixCache", "blocks_for_tokens", "Request",
            "RequestResult", "ServeScheduler", "bucket_for",
-           "round_pool_len"]
+           "round_pool_len", "PageSpan", "PrefillEngine", "DecodeEngine",
+           "Router", "run_disaggregated"]

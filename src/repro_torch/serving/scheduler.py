@@ -61,7 +61,12 @@ snapshot itself, stay eager in-place writes and clones (the reference's
 ported: the deprecated keyword-argument constructor, ``audit_programs``
 (it traces and lowers JAX programs for the reference's jaxpr/HLO
 auditor, which has no counterpart for a CUDA graph), ``mesh=`` /
-``mesh_spec`` and the disaggregation hook ``_defer_decode``.
+``mesh_spec``.
+
+``_defer_decode`` is the disaggregation hook (``serving/workers.py``'s
+``PrefillEngine`` sets it): every finishing chunk row is held out of the
+same tick's decode steps, so a slot reaches phase ``"decode"`` with its
+first-token logits and no token.
 """
 
 from __future__ import annotations
@@ -218,6 +223,9 @@ class ServeScheduler:
         self.attn_kernel = config.attn_kernel
         self.attn_splits = config.attn_splits
         self._needs_chunk_programs = config.needs_chunk_programs
+        # the disaggregation hook: hold every finishing chunk row out of the
+        # same tick's decode, so prefill-only ingestion generates no token
+        self._defer_decode = False
 
         # --- persistent pool (allocated exactly once) ----------------------
         if paged:
@@ -615,9 +623,10 @@ class ServeScheduler:
                 # decode step touches it: a last chunk that lands exactly
                 # on the cacheable boundary holds its row out of this
                 # tick's decode (it decodes next tick, with equal tokens)
-                defer[i] = (finishing[i] and self._wants_snapshot(s)
-                            and s.prefill_pos + take
-                            == self._cacheable_len(s.req.prompt.size))
+                defer[i] = finishing[i] and (
+                    self._defer_decode
+                    or (self._wants_snapshot(s) and s.prefill_pos + take
+                        == self._cacheable_len(s.req.prompt.size)))
         # a slot whose LAST chunk lands this tick decodes in the same tick:
         # the chunk writes its first-token logits before the decode steps
         decode_mask = np.array(

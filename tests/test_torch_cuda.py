@@ -1160,3 +1160,122 @@ def test_paper_net_codes_bit_equal_to_plain(cuda, net):
         st = measure(LogQuantized(other, torch.ones_like(other)))
         assert (card.hist == st.hist).all()
         assert card.zero_frac == st.zero_frac
+
+
+# ---------------------------------------------------------------------------
+# disaggregated serving: spans imported into captured graphs
+# ---------------------------------------------------------------------------
+
+DISAGG = dict(max_slots=2, max_len=48, buckets=(8, 16), tick_steps=2,
+              paged=True, page_len=8, chunked="auto", chunk_len=8,
+              attn_kernel="pallas", attn_splits=2)
+DISAGG_MODES = {
+    "float_k3": ("smollm-135m", DISAGG, False),
+    "packed_kv_quant_k4": ("smollm-135m", dict(
+        DISAGG, kv_quant=True, kv_bits=4, quant="pallas", with_stats=True),
+        True),
+    "mamba_prefix": ("mamba2-780m", dict(DISAGG, prefix_cache=True), False),
+}
+
+
+def _disagg_model(cuda, arch, quant):
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import init_params
+    from repro_torch.models.quantize import quantize_model_params
+
+    cfg = get_smoke(arch)
+    params = init_params(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    if quant:
+        params = quantize_model_params(cfg, params, pack=True)
+    return cfg, params
+
+
+def _served(sched, prompts):
+    for p in prompts:
+        sched.submit(p, max_new=6)
+    return [(r.tokens, r.finish_reason, repr(r.plane_traffic_fraction),
+             r.admitted_tick) for r in sched.run()]
+
+
+@pytest.mark.parametrize("mode", list(DISAGG_MODES))
+def test_span_import_into_captured_graphs_equals_eager(cuda, mode):
+    """The router on the card (bf16 smoke config): spans imported into a
+    decode pool whose tick graph was captured before (admitted on a later
+    decode tick) replay to the tokens, stats and admission ticks of the
+    same run under ``engine.eager()``, and to the combined scheduler's
+    tokens; no program raised for moved memory, every program that ran
+    was captured once and replayed on every later call."""
+    from repro_torch.serving import Router, ServeConfig, ServeScheduler
+    from repro_torch.serving import engine
+
+    arch, kw, quant = DISAGG_MODES[mode]
+    cfg, params = _disagg_model(cuda, arch, quant)
+    prompts = _graph_prompts(cfg.vocab_size)
+    with engine.eager():
+        eager = _served(Router(cfg, params, ServeConfig(**kw), device=cuda),
+                        prompts)
+    router = Router(cfg, params, ServeConfig(**kw), device=cuda)
+    graph = _served(router, prompts)
+    combined = _served(ServeScheduler(cfg, params, ServeConfig(**kw),
+                                      device=cuda), prompts)
+    assert graph == eager
+    assert [r[0] for r in graph] == [r[0] for r in combined]
+    assert any(r[3] > 0 for r in graph)     # imported after the capture
+    for eng in (router.prefill, router.decode):
+        for name, prog in eng.scheduler.programs().items():
+            for entry in prog.entries():
+                assert entry.graph is not None
+                assert entry.replays == entry.calls >= 1, name
+    (tick,) = router.decode.scheduler.programs()["tick"].entries()
+    assert tick.replays > 1
+
+
+def test_bf16_span_survives_a_frame_round_trip(cuda):
+    """A bf16 kv_quant span exported from the card's pool, written to a
+    frame (dtype ``"bfloat16"`` on the wire) and read back, holds the
+    exported arrays bit for bit, writes the same frame again, and lands
+    in a decode pool on the card bit for bit."""
+    import json
+
+    from repro_torch.serving import (DecodeEngine, PageSpan, PrefillEngine,
+                                     ServeConfig)
+    from repro_torch.serving.workers import BF16Bits
+
+    kw = dict(DISAGG, kv_quant=True, kv_bits=4)
+    cfg, params = _disagg_model(cuda, "smollm-135m", False)
+    prompt = _graph_prompts(cfg.vocab_size)[2]          # 21 tokens: chunked
+    span, _ = PrefillEngine(cfg, params, ServeConfig(**kw),
+                            device=cuda).prefill(prompt, max_new=6)
+    blob = span.to_bytes()
+    back = PageSpan.from_bytes(blob)
+    assert back.to_bytes() == blob
+    hdr_len = int.from_bytes(blob[10:14], "little")
+    dtypes = {d["name"]: d["dtype"]
+              for d in json.loads(blob[14:14 + hdr_len])["arrays"]}
+    assert dtypes["logits"] == dtypes["layer0.k_tail"] == "bfloat16"
+    assert isinstance(back.logits, BF16Bits)
+
+    def bits(t):
+        return t.view(torch.int16).cpu()
+
+    for k, a in span.layers[0].items():
+        assert type(back.layers[0][k]) is type(a), k
+        assert a.dtype == back.layers[0][k].dtype, k
+        assert (back.layers[0][k] == a).all(), k
+    assert (back.logits == span.logits).all()
+    dec = DecodeEngine(cfg, params, ServeConfig(**kw), device=cuda)
+    assert dec.admit(back, rid=0) == "ok"
+    d = dec.scheduler
+    mine = torch.as_tensor(d._table[0, :span.n_blocks].astype("int64"),
+                           device=cuda)
+    layer = d._pool["layers"][0]
+    for k in ("k_tail", "v_tail"):
+        want = torch.from_numpy(back.layers[0][k].view("int16"))
+        assert torch.equal(bits(layer[k][:, 0]), want), k
+    for k in ("k_codes", "v_codes", "k_scale", "v_scale"):
+        assert torch.equal(layer[k].index_select(1, mine).cpu(),
+                           torch.from_numpy(back.layers[0][k])), k
+    assert torch.equal(bits(d._logits[0]),
+                       torch.from_numpy(back.logits.view("int16")))
+    assert dec.step()

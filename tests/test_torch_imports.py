@@ -1,11 +1,13 @@
-"""The port imports nothing of JAX and nothing of the JAX package.
+"""The port imports nothing of JAX and nothing of the JAX package, nor
+``ml_dtypes`` (the card's machine has none: the port carries bf16 span
+arrays as their bit patterns).
 
 In a child process (so that this test process's own imports do not
 count), every module of ``repro_torch`` is imported through
-``pkgutil.walk_packages``; afterwards neither ``jax`` nor ``repro`` (nor
-any ``jax.*`` / ``repro.*`` submodule) may be in ``sys.modules``.  Then,
-statically, no port source file and not ``chip_smoke.py`` names either
-in an ``import`` statement, at any depth (imports inside functions
+``pkgutil.walk_packages``; afterwards none of ``jax``, ``repro`` and
+``ml_dtypes`` (nor any of their submodules) may be in ``sys.modules``.
+Then, statically, no port source file and not ``chip_smoke.py`` names
+one in an ``import`` statement, at any depth (imports inside functions
 included: the port builds and loads its kernels lazily).
 """
 
@@ -20,7 +22,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
-FORBIDDEN = ("jax", "repro")
+FORBIDDEN = ("jax", "repro", "ml_dtypes")
 
 CHILD = """
 import importlib, json, pkgutil, sys
@@ -50,7 +52,8 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
     mods = set(got["modules"])
     for want in ("repro_torch.models.paper_nets", "repro_torch.simulator",
                  "repro_torch.simulator.stats", "repro_torch.serving.engine",
-                 "repro_torch.kernels.log2quant.ops"):
+                 "repro_torch.kernels.log2quant.ops",
+                 "repro_torch.serving.workers", "repro_torch.serving.router"):
         assert want in mods, want
     files = {p for p in PORT.rglob("*.py") if "build" not in p.parts}
     assert len(mods) + 1 >= len(files)      # + the package's __init__
