@@ -186,8 +186,9 @@ Phases, in order; any failure exits non-zero before the result line:
    K2's plain versions, its time on both plane layouts beside its bound,
    and the routed-expert products of the step beside their byte bound.
    Then phase 7's trace and ``ServeConfig`` with K3, packed planes with
-   stats, as graphs: tok/s, ms per decode step (host, device), nodes per
-   step, ``compile_stats()``; the first ``CUT_LAYERS`` (4) layers over the
+   stats, as graphs at the first ``SCHED_LAYERS`` (14) layers: tok/s, ms
+   per decode step (host, device), nodes per step, ``compile_stats()``;
+   the first ``CUT_LAYERS`` (4) layers over the
    same trace as graphs and under ``engine.eager()``, held equal, and
    the routed slots each tick of that eager run dropped over capacity,
    and K3 on the tick that touches most pages at (16, 1, 128) as phase 7
@@ -213,9 +214,10 @@ Phases, in order; any failure exits non-zero before the result line:
    decode step held against K1's and K2's plain versions on their real
    activations, then timed by CUDA-graph replay beside their bound and
    the plain version.  Then phase 7's trace and ``ServeConfig`` with K3,
-   packed planes with stats, as graphs (tok/s, ms per decode step, nodes,
-   ``compile_stats()``, K3 on the tick touching most pages at (8, 8,
-   128) as phase 7 times it), and the model's first ``CUT_LAYERS`` (4)
+   packed planes with stats, as graphs at the first ``SCHED_LAYERS`` (16)
+   layers (tok/s, ms per decode step, nodes, ``compile_stats()``, K3 on
+   the tick touching most pages at (8, 8, 128) as phase 7 times it, 64
+   launches over the pool's 16 layers), and the model's first ``CUT_LAYERS`` (4)
    layers over the same trace as graphs and under ``engine.eager()``,
    held equal (the eager run of the whole trace at 64 layers would take
    minutes).  Last, the qwen3, qwen2.5 and
@@ -265,11 +267,38 @@ Phases, in order; any failure exits non-zero before the result line:
    ``max_len``, rejected), equal to the combined scheduler in this
    process; the decode worker's tick ms and the bytes per frame.
 
+15. training (``train/trainer.py``, ``optim/adamw.py``, the flash
+   Function of ``models/attention.py``, ``checkpoint/manager.py``,
+   ``launch/train.py``), with no kernel of the serving paths (their counts
+   stay 0).  All ten smoke configs in f32: one step's loss and gradients
+   on the card against the plain host run on the same weights and batch
+   (gradients within ``TRAIN_SMOKE_REL`` of each leaf's largest
+   magnitude).  The flash Function against torch autograd through the
+   plain chunked forward at smollm-135m's attention (B 8, S 1024, 9/3
+   heads x 64), ``kv_chunk`` 1024 and 256, f32 (within
+   ``FLASH_F32_REL``) and bf16 (as close to the f32 gradients as plain
+   autograd's bf16 ones, twice or 2^-7), no saved tensor of a chunk's
+   score shape (``saved_tensors_hooks``), and the device time of a
+   forward plus backward of each.  Full-width smollm-135m in bf16 from
+   seed 0 through ``train_loop``: ``TRAIN``'s 20 steps of global batch
+   16 x 1024 tokens in 2 micro-batches, AdamW lr 3e-4, warmup 5; every
+   loss and grad norm finite, the last loss at least 0.5 nats below the
+   first; the state saved with ``save_async`` at step 10, restored by a
+   fresh manager into a fresh tree and trained over steps 10-19 again,
+   losses and final state bit-equal; the step's host and device time
+   (with deterministic kernels and without), tokens/s, peak memory,
+   FLOPs a step and their share of the dense bf16 peak, one profiled
+   step (the top five device ops, the flash forward and backward's
+   share), save and restore seconds.  Last, ``repro_torch.launch.train``
+   at full width in two child processes: 4 steps with a checkpoint every
+   2, then ``--steps 6 --resume auto``, which resumes at step 4.
+
 Prints a ``serving:`` line (graph and eager tok/s of phases 4, 7, 9, 10,
 11 and 12), a ``paper evaluation:`` line (phase 13's nets and figures), a
-``disaggregated:`` line (phase 14), a ``kernels:`` line, the JSON kernel
-table and, last, the result line ``{"ok": true, "device": {...}}``.  It
-imports nothing of JAX and nothing of the JAX package.
+``disaggregated:`` line (phase 14), a ``training:`` line (phase 15), a
+``kernels:`` line, the JSON kernel table and, last, the result line
+``{"ok": true, "device": {...}}``.  It imports nothing of JAX and nothing
+of the JAX package.
 """
 
 from __future__ import annotations
@@ -319,6 +348,10 @@ SERVE_NEW = 32
 KV_BITS = 4
 F32_LAYERS = 4                      # depth of phases 7 and 9's f32 runs
 CUT_LAYERS = 4                      # depth of phases 7, 9-12 eager runs
+# depth of phases 11 and 12's whole-trace scheduler runs (graphs), cut
+# from 28 and 64 layers to keep the script inside its time limit with
+# phase 15; the one-shot runs and decode-step programs keep full depth
+SCHED_LAYERS = {"deepseek-moe-16b": 14, "qwen3-32b": 16}
 # phases 6 and 8 at the serving path's geometry (page_len 16, 32 table
 # columns): rows long enough that every warp of a block walks several
 # pages, at smollm-135m's (G, R, D), at D = 128 and R = 8, at
@@ -768,6 +801,12 @@ def main() -> None:
         "mamba": m10["combined"]})
     print(f"  (phase 14 done at {time.perf_counter() - t_main:.0f} s)")
     print(f"disaggregated ({card}): {json.dumps(m14)}")
+    gc_cuda(torch)
+
+    # -- phase 15: training -------------------------------------------------
+    m15 = phase15(torch, dev, card, l2_ops, bm_ops, pa_ops)
+    print(f"  (phase 15 done at {time.perf_counter() - t_main:.0f} s)")
+    print(f"training ({card}): {json.dumps(m15)}")
     serving = {"phase4": {tag: {
         "graph_tok_s": BATCH * NEW / r["t_graph"],
         "eager_tok_s": BATCH * NEW / r["t_eager"],
@@ -1826,37 +1865,41 @@ def k3_tick(torch, dev, card, cfg, pa_ops, best) -> dict:
     b, nb = table.shape
     g, d = cfg.n_kv_heads, cfg.head_dim
     r = cfg.n_heads // g
+    # a pool from a run cut below cfg's depth (SCHED_LAYERS) holds fewer
+    # layers: a step's cfg.n_layers launches cycle over them
+    pools = best["k"].shape[0]
     splits = SERVE["attn_splits"]
     gen = torch.Generator(device=dev).manual_seed(7)
     qs = [torch.randn((b, g, r, d), generator=gen, device=dev,
                       dtype=cfg.dtype) for _ in range(cfg.n_layers)]
     err = 0.0
-    for layer in range(cfg.n_layers):
+    for layer in range(pools):
         err = max(err, k3_against_plain(
             torch, pa_ops, qs[layer], best["k"][layer], best["v"][layer],
             table, lens, splits, f"full-width tick, layer {layer}"))
     print(f"  tick with {best['touched']} touched pages (lengths "
           f"{lens.tolist()}): K3 within bf16 tolerance of its plain version "
-          f"on all {cfg.n_layers} layers (max |diff| {err:.3e})")
+          f"on all {pools} layers of the pool (max |diff| {err:.3e})")
 
     def k3_step():
         for layer in range(cfg.n_layers):
-            pa_ops.paged_attention(qs[layer], best["k"][layer],
-                                   best["v"][layer], table, lens, splits)
+            pa_ops.paged_attention(qs[layer], best["k"][layer % pools],
+                                   best["v"][layer % pools], table, lens,
+                                   splits)
 
     def plain_step():
         for layer in range(cfg.n_layers):
-            pa_ops.paged_attention_plain(qs[layer], best["k"][layer],
-                                         best["v"][layer], table, lens,
-                                         splits)
+            pa_ops.paged_attention_plain(qs[layer], best["k"][layer % pools],
+                                         best["v"][layer % pools], table,
+                                         lens, splits)
 
     valid = (torch.arange(nb * SERVE["page_len"], device=dev)[None]
              < lens[:, None])[:, None, None, :]          # (B, 1, 1, S)
 
     def library_step():
         for layer in range(cfg.n_layers):
-            kg = _paged_gather(best["k"][layer], table).transpose(1, 2)
-            vg = _paged_gather(best["v"][layer], table).transpose(1, 2)
+            kg = _paged_gather(best["k"][layer % pools], table).transpose(1, 2)
+            vg = _paged_gather(best["v"][layer % pools], table).transpose(1, 2)
             torch.nn.functional.scaled_dot_product_attention(
                 qs[layer].reshape(b, g * r, 1, d), kg, vg, attn_mask=valid,
                 enable_gqa=True)
@@ -3210,10 +3253,12 @@ def deepseek_full(torch, dev, card, kernels, bm_ops, pa_ops) -> dict:
         drops.append(int(sum(dropped)))
         dropped.clear()
 
-    # the whole model as graphs (the measured path), then its first
-    # CUT_LAYERS layers as graphs and under engine.eager(), held equal
+    # the model's first SCHED_LAYERS layers as graphs (the measured path),
+    # then its first CUT_LAYERS layers as graphs and under engine.eager(),
+    # held equal
+    scfg, sparams = first_layers(cfg, pparams, SCHED_LAYERS[cfg.name])
     ccfg, cparams = first_layers(cfg, pparams, CUT_LAYERS)
-    plan = (("graph", cfg, pparams), ("cut/graph", ccfg, cparams),
+    plan = (("graph", scfg, sparams), ("cut/graph", ccfg, cparams),
             ("cut/eager", ccfg, cparams))
     sruns = {}
     for mode, c, p in plan:
@@ -3690,11 +3735,12 @@ def qwen3_step_k2(torch, dev, cfg, pparams, prompt, bm_ops, names) -> dict:
 
 def qwen3_scheduler(torch, dev, card, cfg, pparams, kernels, pa_ops):
     """Phase 7's trace and ``ServeConfig`` with K3 on packed planes with
-    stats, as graphs (tok/s, ms a step, nodes, ``compile_stats()``, K3 on
-    the tick touching most pages); then the model's first ``CUT_LAYERS``
-    layers over the same trace as graphs and under ``engine.eager()``,
-    held equal (the eager run of the whole trace would take minutes at 64
-    layers)."""
+    stats, as graphs at the model's first ``SCHED_LAYERS`` layers (tok/s,
+    ms a step, nodes, ``compile_stats()``, K3 on the tick touching most
+    pages, timed over all 64 layers' launches); then the model's first
+    ``CUT_LAYERS`` layers over the same trace as graphs and under
+    ``engine.eager()``, held equal (the eager run of the whole trace would
+    take minutes at 64 layers)."""
     from repro_torch.serving import engine
 
     trace = serve_trace(cfg.vocab_size)
@@ -3716,11 +3762,13 @@ def qwen3_scheduler(torch, dev, card, cfg, pparams, kernels, pa_ops):
         print(f"  {label}: forwards {fwd}; launches {launches}")
         return launches
 
+    scfg, sparams = first_layers(cfg, pparams, SCHED_LAYERS[cfg.name])
     res, sched, fwd, wall, run = serve(
-        torch, dev, cfg, trace, quant=True, kernel=True, stats=True,
-        counters=kernels, params=pparams, on_tick=on_tick)
-    launches = launches_ok("qwen3 scheduler K3 packed+stats, graph", cfg,
-                           run, fwd, "graph")
+        torch, dev, scfg, trace, quant=True, kernel=True, stats=True,
+        counters=kernels, params=sparams, on_tick=on_tick)
+    launches = launches_ok(f"qwen3 scheduler K3 packed+stats, graph "
+                           f"({scfg.n_layers} layers)", scfg, run, fwd,
+                           "graph")
     out["k3_launches"] = launches["paged_attention"]
     out["scheduler/graph"] = tok_s("qwen3 packed+stats graph", res, wall,
                                    run, sched)
@@ -4419,6 +4467,545 @@ def phase14(torch, dev, card, l2_ops, bm_ops, pa_ops, combined) -> dict:
     print(f"  (phase 14 took {time.perf_counter() - t_phase:.0f} s)")
     return out
 
+
+# ---------------------------------------------------------------------------
+# phase 15: training
+# ---------------------------------------------------------------------------
+
+# full-width smollm-135m training: the synthetic data, micro-batches,
+# AdamW and the step the resumed run restarts from
+TRAIN = dict(global_batch=16, seq_len=1024, micro_batches=2, lr=3e-4,
+             warmup_steps=5, steps=20, resume_at=10)
+# the flash Function at smollm-135m's attention (B, S, H, G, D) and two
+# KV chunkings (one chunk; four)
+FLASH_SHAPE = (8, 1024, 9, 3, 64)
+FLASH_CHUNKS = (1024, 256)
+# gradient tolerances, as a share of each tensor's largest magnitude:
+# smoke configs card against host (f32), the flash Function against plain
+# autograd on the card in f32; at bf16 the Function must come as close to
+# the f32 gradients as plain autograd's bf16 gradients do (twice their
+# error, or 2^-7)
+TRAIN_SMOKE_REL = 1e-4
+FLASH_F32_REL = 2e-5
+BF16_PEAK_FLOPS = 989e12            # H100 SXM dense bf16, NVIDIA data sheet
+
+
+def rel_err(torch, got, want) -> float:
+    """max |got - want| over max |want| (0 when both are 0), in f32."""
+    got, want = got.float(), want.float()
+    top = float(want.abs().max()) if want.numel() else 0.0
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    return err / top if top else err
+
+
+def train_batch(np, cfg, seed: int, b: int = 2, s: int = 16) -> dict:
+    """A numpy training batch for a smoke config (tokens or the audio
+    stub's embeddings, the vision stub's patch rows, labels, a 0/1
+    mask)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    st = s - cfg.n_image_tokens if cfg.frontend == "vision_stub" else s
+    if cfg.frontend == "audio_stub":
+        out["embeds"] = rng.standard_normal((b, s, cfg.d_model)).astype(
+            np.float32)
+    else:
+        out["tokens"] = rng.integers(0, cfg.vocab_size, (b, st)).astype(
+            np.int32)
+    if cfg.frontend == "vision_stub":
+        out["image_embeds"] = rng.standard_normal(
+            (b, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    out["labels"] = rng.integers(0, cfg.vocab_size, (b, st)).astype(np.int32)
+    out["mask"] = (rng.random((b, st)) < 0.8).astype(np.float32)
+    return out
+
+
+def train_smoke_on_card(torch, dev) -> dict:
+    """Every smoke config in f32: one step's loss and gradients on the card
+    against the plain host run on the same weights and batch."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke, list_archs
+    from repro_torch.models.model import init_params
+    from repro_torch.train.trainer import make_loss_fn, value_and_grad
+    from repro_torch.tree import flatten_with_path
+
+    out = {}
+    for i, name in enumerate(list_archs()):
+        cfg = get_smoke(name).replace(dtype=torch.float32)
+        host = init_params(cfg, generator=torch.Generator().manual_seed(7),
+                           device="cpu")
+        batch = {k: torch.from_numpy(v)
+                 for k, v in train_batch(np, cfg, i).items()}
+        lh, gh = value_and_grad(make_loss_fn(cfg), host, batch)
+        lc, gc = value_and_grad(make_loss_fn(cfg), _to(torch, host, dev),
+                                {k: v.to(dev) for k, v in batch.items()})
+        loss_err = abs(float(lc) - float(lh)) / abs(float(lh))
+        check(loss_err <= 1e-5, f"{name} smoke: loss on the card {float(lc)}"
+              f" against {float(lh)} on the host")
+        worst, at = 0.0, ""
+        for (key, a), (_, b) in zip(flatten_with_path(gh),
+                                    flatten_with_path(gc)):
+            b = b.cpu()
+            check(bool(torch.isfinite(b).all()), f"{name} {key}: a "
+                  f"non-finite gradient on the card")
+            e = rel_err(torch, b, a)
+            if e >= worst:
+                worst, at = e, key
+        check(worst <= TRAIN_SMOKE_REL, f"{name} smoke: gradient {at} on "
+              f"the card differs from the host's by {worst:.2e} of its "
+              f"largest magnitude")
+        out[name] = {"loss": float(lc), "loss_rel_err": loss_err,
+                     "grad_rel_err": worst, "leaf": at}
+        print(f"  {name} smoke f32: loss {float(lc):.6f} (host "
+              f"{float(lh):.6f}), worst gradient {at} {worst:.2e} of its "
+              f"largest magnitude")
+    return out
+
+
+def flash_on_card(torch, dev) -> dict:
+    """The flash Function against torch autograd through the plain chunked
+    forward at smollm-135m's attention, f32 and bf16, one chunk and four,
+    and the tensors each saves for the backward (by
+    ``saved_tensors_hooks``).  Returns the results and a function that
+    adds the device time of a forward plus backward of each."""
+    from repro_torch.models import attention
+
+    b, s, h, g, d = FLASH_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(15)
+    pos = torch.arange(s, device=dev, dtype=torch.int32).expand(b, s)
+    base = [torch.randn(shape, generator=gen, device=dev)
+            for shape in ((b, s, h, d), (b, s, g, d), (b, s, g, d),
+                          (b, s, h, d))]
+
+    def run(fn, q, k, v, do, saved=None):
+        ts = [t.detach().requires_grad_() for t in (q, k, v)]
+
+        def pack(t):
+            if saved is not None:
+                saved.append((tuple(t.shape), t.numel() * t.element_size()))
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            out = fn(*ts)
+            grads = torch.autograd.grad(out, ts, do)
+        return [out.detach()] + list(grads)
+
+    def ms(fn, q, k, v, do, reps=3):
+        run(fn, q, k, v, do)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for _ in range(reps):
+            run(fn, q, k, v, do)
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / reps
+
+    res, timers = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (t.to(dtype) for t in base)
+        for chunk in FLASH_CHUNKS:
+            def fn(a, bb, c, chunk=chunk):
+                return attention.flash_attention(a, bb, c, pos, pos,
+                                                 kv_chunk=chunk)
+
+            def plain(a, bb, c, chunk=chunk):
+                return attention.flash_forward(a, bb, c, pos, pos, True,
+                                               chunk)[0]
+
+            saved, saved_plain = [], []
+            got = run(fn, q, k, v, do, saved)
+            want = run(plain, q, k, v, do, saved_plain)
+            scores = [sh for sh, _ in saved if sh[-2:] == (s, chunk)]
+            check(not scores, f"the flash Function saved score-shaped "
+                  f"tensors {scores}")
+            errs = [rel_err(torch, x, y) for x, y in zip(got, want)]
+            tag = f"{str(dtype).split('.')[-1]} kv_chunk {chunk}"
+            if dtype == torch.float32:
+                check(max(errs) <= FLASH_F32_REL, f"flash {tag}: out, dq, "
+                      f"dk, dv differ from plain autograd by {errs}")
+                ref_errs = None
+            else:
+                f32 = run(plain, *(t.float() for t in (q, k, v, do)))
+                ref_errs = [(rel_err(torch, x, r), rel_err(torch, y, r))
+                            for x, y, r in zip(got, want, f32)]
+                for name, (e_fn, e_plain) in zip(("out", "dq", "dk", "dv"),
+                                                 ref_errs):
+                    check(e_fn <= max(2 * e_plain, 2 ** -7), f"flash {tag} "
+                          f"{name}: {e_fn:.2e} from the f32 gradients, plain "
+                          f"autograd's bf16 {e_plain:.2e}")
+            res[tag] = {"rel_err_vs_plain": errs, "vs_f32": ref_errs,
+                        "saved_mb": sum(n for _, n in saved) / 1e6,
+                        "plain_saved_mb": sum(n for _, n in saved_plain) / 1e6,
+                        "plain_score_mb": sum(
+                            n for sh, n in saved_plain
+                            if sh[-2:] == (s, chunk)) / 1e6}
+            timers.append((tag, fn, plain, (q, k, v, do)))
+            print(f"  flash {tag}: out/dq/dk/dv vs plain autograd "
+                  f"{', '.join(f'{e:.2e}' for e in errs)}"
+                  + ("" if ref_errs is None else " (vs f32, Function / "
+                     "plain: " + ", ".join(f"{a:.2e}/{p:.2e}"
+                                           for a, p in ref_errs) + ")")
+                  + f"; saved {res[tag]['saved_mb']:.1f} MB, no score-shaped"
+                  f" tensor (plain autograd {res[tag]['plain_saved_mb']:.1f} "
+                  f"MB, {res[tag]['plain_score_mb']:.1f} of them scores)")
+
+    def times():
+        """Device ms of a forward plus backward, the Function and plain
+        autograd, on the inputs above (called when the card is quiet)."""
+        for tag, fn, plain, xs in timers:
+            res[tag]["fwd_bwd_ms"] = ms(fn, *xs)
+            res[tag]["plain_fwd_bwd_ms"] = ms(plain, *xs)
+            print(f"  flash {tag}: forward + backward "
+                  f"{res[tag]['fwd_bwd_ms']:.3f} ms (plain autograd "
+                  f"{res[tag]['plain_fwd_bwd_ms']:.3f})")
+
+    return res, times
+
+
+def train_flops(cfg, tokens: int, batch: int, seq: int) -> dict:
+    """FLOPs of one training step: ``6 * N * tokens``, N the weights of
+    every matmul (the projections and the head; the embedding lookup is
+    none), plus the attention einsums as the flash path computes them,
+    masked halves included: 2 forward and 5 backward products of
+    ``2 * B * H * S^2 * D`` each, per layer."""
+    d, hd = cfg.d_model, cfg.head_dim
+    per_layer = (d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+                 + cfg.n_heads * hd * d + 3 * d * cfg.d_ff)
+    n_mm = cfg.n_layers * per_layer + d * cfg.vocab_size
+    dense = 6 * n_mm * tokens
+    attn = 14 * batch * cfg.n_heads * seq * seq * hd * cfg.n_layers
+    return {"matmul_params": n_mm, "dense": dense, "attention": attn,
+            "total": dense + attn}
+
+
+def profiled_train_step(torch, step_fn, params, opt, batch) -> dict:
+    """One training step under ``torch.profiler`` (host and device): the
+    device-busy time, the top five device ops, and the flash Function's
+    forward and backward device time (each wrapped in a profiler range
+    for this step only)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models.attention import FlashAttention
+
+    fwd, bwd = FlashAttention.forward, FlashAttention.backward
+
+    def f(ctx, *a):
+        with record_function("flash.fwd"):
+            return fwd(ctx, *a)
+
+    def bw(ctx, *a):
+        with record_function("flash.bwd"):
+            return bwd(ctx, *a)
+
+    FlashAttention.forward, FlashAttention.backward = (staticmethod(f),
+                                                       staticmethod(bw))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        FlashAttention.forward, FlashAttention.backward = (
+            staticmethod(fwd), staticmethod(bwd))
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def self_us(e):
+        return float(getattr(e, "self_device_time_total", None)
+                     or getattr(e, "self_cuda_time_total", 0.0))
+
+    def total_us(e):
+        return float(getattr(e, "device_time_total", None)
+                     or getattr(e, "cuda_time_total", 0.0))
+
+    events = prof.key_averages()
+    ranges = ("flash.fwd", "flash.bwd")
+    ops = [e for e in events if e.device_type == cuda
+           and e.key not in ranges]
+    busy = sum(self_us(e) for e in ops) / 1e3
+    flash = {r: sum(total_us(e) for e in events
+                    if e.key == r and e.device_type != cuda) / 1e3
+             for r in ranges}
+    top = sorted(ops, key=self_us, reverse=True)[:5]
+    return {"wall_ms": wall, "busy_ms": busy,
+            "flash_fwd_ms": flash["flash.fwd"],
+            "flash_bwd_ms": flash["flash.bwd"],
+            "flash_share": (flash["flash.fwd"] + flash["flash.bwd"]) / busy
+            if busy else None,
+            "top": [(e.key[:60], self_us(e) / 1e3, e.count) for e in top]}
+
+
+def train_full_width(torch, dev, kernels) -> dict:
+    """Full-width smollm-135m in bf16 from seed 0: ``TRAIN['steps']``
+    steps through ``train_loop``, the state saved with ``save_async`` at
+    ``TRAIN['resume_at']``, then restored by a fresh manager into a fresh
+    tree and trained to the end again: losses and final state bit-equal.
+    Returns the run's log and end state for :func:`train_timing`."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainConfig, train_loop
+    from repro_torch.tree import leaves
+
+    cfg = get_config("smollm-135m")
+    tr = TRAIN
+    steps, mid = tr["steps"], tr["resume_at"]
+    data = SyntheticLM(DataConfig(global_batch=tr["global_batch"],
+                                  seq_len=tr["seq_len"],
+                                  vocab_size=cfg.vocab_size, seed=0))
+    tcfg = TrainConfig(optimizer=adamw.AdamWConfig(
+        lr=tr["lr"], warmup_steps=tr["warmup_steps"], total_steps=steps),
+        micro_batches=tr["micro_batches"])
+
+    def batches(lo, hi):
+        for st in range(lo, hi):
+            yield {k: torch.from_numpy(v).to(dev)
+                   for k, v in data.batch(st).items()}
+
+    def hook_into(log):
+        def hook(st, m):
+            log[st] = (float(m["loss"]), float(m["grad_norm"]),
+                       bool(m["straggler"]))
+        return hook
+
+    params = init_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    opt = adamw.init(params)
+    print(f"  {cfg.name} {cfg.n_layers}L d={cfg.d_model} vocab "
+          f"{cfg.vocab_size} {cfg.dtype}: global batch {tr['global_batch']}"
+          f" x {tr['seq_len']} tokens, {tr['micro_batches']} micro-batches, "
+          f"AdamW lr {tr['lr']} (warmup {tr['warmup_steps']}, total "
+          f"{steps})")
+    log = {}
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        for kn in kernels:
+            kn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params, opt, _ = train_loop(cfg, tcfg, params, opt,
+                                    batches(0, mid), hook=hook_into(log))
+        mgr = CheckpointManager(ckdir, keep=2)
+        mgr.save_async(mid, {"params": params, "opt": opt})
+        params, opt, _ = train_loop(cfg, tcfg, params, opt,
+                                    batches(mid, steps), step0=mid,
+                                    hook=hook_into(log))
+        peak = torch.cuda.max_memory_allocated()
+        launched = {kn.__name__: kn.launches for kn in kernels}
+        check(not any(launched.values()), f"the training path launched a "
+              f"serving kernel: {launched}")
+        mgr.wait()
+        losses = [log[st][0] for st in range(steps)]
+        norms = [log[st][1] for st in range(steps)]
+        check(all(math.isfinite(x) for x in losses + norms),
+              f"non-finite loss or grad_norm: {losses} {norms}")
+        check(losses[-1] <= losses[0] - 0.5, f"loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}: not 0.5 nats lower after {steps} steps")
+
+        # a fresh manager restores into a fresh tree and trains again
+        fresh = init_params(cfg, generator=torch.Generator(
+            device=dev).manual_seed(1), device=dev)
+        state = CheckpointManager(ckdir).restore(
+            mid, {"params": fresh, "opt": adamw.init(fresh)})
+        del fresh
+        relog = {}
+        p2, o2, _ = train_loop(cfg, tcfg, state["params"], state["opt"],
+                               batches(mid, steps), step0=mid,
+                               hook=hook_into(relog))
+        del state
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    for st in range(mid, steps):
+        check(relog[st][:2] == log[st][:2], f"resumed step {st}: loss, "
+              f"grad_norm {relog[st][:2]} against {log[st][:2]}")
+    check(all(torch.equal(a, b) for a, b in zip(leaves((params, opt)),
+                                                 leaves((p2, o2)))),
+          "the resumed run's final params or optimizer state differ from "
+          "the uninterrupted run's")
+    del p2, o2
+    print(f"  {steps} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"grad_norm {norms[0]:.3f} -> {norms[-1]:.3f}; resumed from step "
+          f"{mid} by a fresh manager into a fresh tree: steps {mid}-"
+          f"{steps - 1}'s losses, grad norms and the final params and "
+          f"moments bit-equal; no serving kernel launched")
+    return {"cfg": cfg, "tcfg": tcfg, "data": data, "params": params,
+            "opt": opt, "log": {"losses": losses, "grad_norms": norms,
+                                "peak_gb": peak / 1e9,
+                                "stragglers": sum(log[st][2]
+                                                  for st in range(steps))}}
+
+
+def train_timing(torch, dev, card, run) -> dict:
+    """On a quiet card, after :func:`train_full_width`: the step's host and
+    device time with deterministic kernels and without (two steps each, on
+    the batches after the run's), tokens/s, FLOPs and their share of the
+    dense bf16 peak, one profiled step, and a synchronous save and a
+    restore of the end state."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.train.trainer import deterministic, make_train_step
+
+    cfg, tcfg, data = run["cfg"], run["tcfg"], run["data"]
+    params, opt = run["params"], run["opt"]
+    tr = TRAIN
+    step_fn = make_train_step(cfg, tcfg)
+    extra = [{k: torch.from_numpy(v).to(dev)
+              for k, v in data.batch(st).items()}
+             for st in range(tr["steps"], tr["steps"] + 2)]
+
+    def step_ms(det: bool):
+        host, device = [], []
+        for b in extra:
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            with deterministic() if det else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                e0.record()
+                step_fn(params, opt, b)
+                e1.record()
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t0) * 1e3)
+            device.append(e0.elapsed_time(e1))
+        return host, device
+
+    host_det, dev_det = step_ms(True)
+    host_nd, dev_nd = step_ms(False)
+    with deterministic():
+        prof = profiled_train_step(torch, step_fn, params, opt, extra[0])
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_save_")
+    try:
+        mgr = CheckpointManager(ckdir)
+        ts = time.perf_counter()
+        mgr.save(tr["steps"], {"params": params, "opt": opt})
+        t_save = time.perf_counter() - ts
+        ck_bytes = sum(os.path.getsize(os.path.join(
+            ckdir, f"step_{tr['steps']:08d}", fn))
+            for fn in ("arrays.npz", "meta.json"))
+        ts = time.perf_counter()
+        mgr.restore(tr["steps"], {"params": params, "opt": opt})
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - ts
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    tokens = tr["global_batch"] * tr["seq_len"]
+    flops = train_flops(cfg, tokens, tr["global_batch"], tr["seq_len"])
+    dev_ms = min(dev_det)
+    rate = flops["total"] / (dev_ms / 1e3)
+    res = {"step_ms_host": host_det, "step_ms_device": dev_det,
+           "step_ms_host_nondeterministic": host_nd,
+           "step_ms_device_nondeterministic": dev_nd,
+           "tokens_per_s": tokens / (dev_ms / 1e3),
+           "tokens_per_s_host": tokens / (min(host_det) / 1e3),
+           "flops": flops, "flops_per_s": rate,
+           "bf16_peak_share": rate / BF16_PEAK_FLOPS,
+           "save_s": t_save, "restore_s": t_restore,
+           "checkpoint_bytes": ck_bytes, "profile": prof}
+    print(f"  step (deterministic / not): host {host_det} / {host_nd} ms, "
+          f"device {dev_det} / {dev_nd} ms; {res['tokens_per_s']:.0f} "
+          f"tokens/s; peak {run['log']['peak_gb']:.2f} GB; "
+          f"{flops['total']:.4e} FLOPs a step (6 N T {flops['dense']:.4e}, "
+          f"attention einsums {flops['attention']:.4e}) = "
+          f"{rate / 1e12:.1f} TFLOP/s, {res['bf16_peak_share']:.4f} of "
+          f"{BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s dense bf16 ({card})")
+    share = prof["flash_share"]
+    print(f"  profiled step: {prof['wall_ms']:.1f} ms wall, device busy "
+          f"{prof['busy_ms']:.1f} ms; flash forward {prof['flash_fwd_ms']:.1f}"
+          f" + backward {prof['flash_bwd_ms']:.1f} ms = "
+          + ("not measured (no device time in the trace)" if share is None
+             else f"{share:.3f} of it")
+          + f"; top device ops {prof['top']}")
+    print(f"  checkpoint {ck_bytes / 1e9:.3f} GB: save {t_save:.2f} s, "
+          f"restore {t_restore:.2f} s")
+    return res
+
+
+def cli_start(args) -> tuple:
+    """``repro_torch.launch.train`` at full width (smollm-135m) in a child
+    process with ``args``; :func:`cli_finish` collects it."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "smollm-135m", *args]
+    return (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True, env=env,
+                             cwd=REPO), args, time.perf_counter())
+
+
+def cli_finish(started) -> tuple:
+    """Wait for a :func:`cli_start` child (killed past 240 s): its stdout,
+    its logged steps and its seconds; a failure fails the phase."""
+    proc, args, t0 = started
+    try:
+        out, err = proc.communicate(timeout=240)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"the training CLI {args} failed: "
+          f"{err[-2000:]}")
+    steps = [json.loads(x)["step"] for x in out.splitlines()
+             if x.startswith("{")]
+    return out, steps, time.perf_counter() - t0
+
+
+def phase15(torch, dev, card, l2_ops, bm_ops, pa_ops) -> dict:
+    """Training on the card: the smoke configs against the host, the flash
+    Function against plain autograd, full-width smollm-135m through
+    ``train_loop`` with a bit-equal resume, and the CLI in two child
+    processes.  The children run beside the checks that time nothing;
+    every time is taken after the second has ended."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    kernels = (l2_ops.log2quant, bm_ops.bitplane_matmul,
+               pa_ops.paged_attention, pa_ops.paged_attention_quant)
+    print("phase 15: training")
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    base = ["--checkpoint-dir", ckdir, "--checkpoint-every", "2"]
+    child = None
+    try:
+        child = cli_start(base + ["--steps", "4"])
+        out = {"smoke": train_smoke_on_card(torch, dev)}
+        out1, steps1, t1 = cli_finish(child)
+        check(steps1 == [0, 1, 2, 3] and "[train] done" in out1,
+              f"the first CLI run logged steps {steps1}")
+        child = cli_start(base + ["--steps", "6", "--resume", "auto"])
+        out["flash"], flash_times = flash_on_card(torch, dev)
+        run = train_full_width(torch, dev, kernels)
+        out2, steps2, t2 = cli_finish(child)
+        child = None
+    finally:
+        if child is not None and child[0].poll() is None:
+            child[0].kill()
+            child[0].wait()
+        shutil.rmtree(ckdir, ignore_errors=True)
+    check("[train] resumed from step 4" in out2 and steps2 == [4, 5]
+          and '"step": 3' not in out2,
+          f"the resumed CLI run: {out2[-1000:]}")
+    for line in (out1 + out2).splitlines():
+        print(f"    | {line}")
+    print(f"  the CLI at full width: 4 steps in {t1:.1f} s, resumed at step "
+          f"4 to 6 in {t2:.1f} s (child processes, start-up included, beside "
+          f"the checks above)")
+    out["cli"] = {"first_s": t1, "resumed_s": t2}
+    # timed on a quiet card
+    flash_times()
+    out["full_width"] = {**run["log"],
+                         **train_timing(torch, dev, card, run)}
+    del run
+    gc_cuda(torch)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  (phase 15 took {out['phase_s']:.0f} s)")
+    return out
 
 if __name__ == "__main__":
     main()

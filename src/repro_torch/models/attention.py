@@ -48,21 +48,66 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Online softmax over KV chunks of ``min(kv_chunk, Skv)`` keys, the same
     chunking as the reference, so the float sums group the same way.
+    When autograd records the call it runs as :class:`FlashAttention`,
+    the reference's custom VJP: the backward recomputes each chunk's
+    probabilities from the saved log-sum-exp, so the residuals are O(S),
+    not every chunk's (B, G, R, Sq, C) probabilities.
     """
     b, sq, h, d = q.shape
     if sq == 1:
         return _decode_attention(q, k, v, q_positions, kv_positions,
                                  kv_valid_len)
-    skv, g = k.shape[1], k.shape[2]
-    r = h // g
-    chunk = min(kv_chunk, skv)
-    n_chunks = -(-skv // chunk)
-    pad = n_chunks * chunk - skv
+    chunk = min(kv_chunk, k.shape[1])
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, q_positions, kv_positions,
+                                    kv_valid_len, causal, chunk)
+    return flash_forward(q, k, v, q_positions, kv_positions, causal, chunk,
+                         kv_valid_len)[0]
+
+
+def _padded_chunks(k, v, kv_positions, chunk: int):
+    """K/V and their positions padded to whole chunks (pad keys sit at
+    position 2**30, after every query), and the pad length."""
+    pad = -k.shape[1] % chunk
     if pad:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         kv_positions = torch.nn.functional.pad(kv_positions, (0, pad),
                                                value=2 ** 30)
+    return k, v, kv_positions, pad
+
+
+def _chunk_scores(qg, kb, pb, q_positions, ci, chunk, causal, kv_valid_len,
+                  scale):
+    """A chunk's masked f32 scores (B, G, R, Sq, C); masked keys take the
+    finite ``NEG_INF``."""
+    b, sq = qg.shape[:2]
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kb.float()) * scale
+    mask = torch.ones((b, 1, 1, sq, chunk), dtype=torch.bool,
+                      device=qg.device)
+    if causal:
+        mask = (pb[:, None, None, None, :]
+                <= q_positions[:, None, None, :, None])
+    if kv_valid_len is not None:
+        idx = ci * chunk + torch.arange(chunk, device=qg.device)
+        mask = mask & (idx[None, None, None, None, :]
+                       < kv_valid_len[:, None, None, None, None])
+    return torch.where(mask, s, NEG_INF)
+
+
+def flash_forward(q, k, v, q_positions, kv_positions, causal: bool,
+                  chunk: int, kv_valid_len=None, stats: bool = False):
+    """The chunked online-softmax forward in plain tensor ops:
+    ``(out, out_g, lse)``, ``out`` (B, Sq, H, D) in q's dtype; with
+    ``stats``, ``out_g`` (B, G, R, Sq, D) f32 and the log-sum-exp ``lse``
+    (B, G, R, Sq) f32 the backward needs, else ``None``.  Autograd through
+    it is the plain backward :class:`FlashAttention` replaces."""
+    b, sq, h, d = q.shape
+    g = k.shape[2]
+    r = h // g
+    k, v, kv_positions, _ = _padded_chunks(k, v, kv_positions, chunk)
+    n_chunks = k.shape[1] // chunk
     scale = 1.0 / math.sqrt(d)
     qg = _grouped(q, g).float()
     m = torch.full((b, g, r, sq), NEG_INF, dtype=torch.float32,
@@ -71,28 +116,77 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     acc = torch.zeros((b, g, r, sq, d), dtype=torch.float32, device=q.device)
     for ci in range(n_chunks):
         sl = slice(ci * chunk, (ci + 1) * chunk)
-        kb, vb, pb = k[:, sl], v[:, sl], kv_positions[:, sl]
-        s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kb.float()) * scale
-        mask = torch.ones((b, 1, 1, sq, chunk), dtype=torch.bool,
-                          device=q.device)
-        if causal:
-            mask = (pb[:, None, None, None, :]
-                    <= q_positions[:, None, None, :, None])
-        if kv_valid_len is not None:
-            idx = ci * chunk + torch.arange(chunk, device=q.device)
-            mask = mask & (idx[None, None, None, None, :]
-                           < kv_valid_len[:, None, None, None, None])
-        s = torch.where(mask, s, NEG_INF)
+        s = _chunk_scores(qg, k[:, sl], kv_positions[:, sl], q_positions, ci,
+                          chunk, causal, kv_valid_len, scale)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
         pv = torch.einsum("bgrqk,bkgd->bgrqd", p.to(q.dtype).float(),
-                          vb.float())
+                          v[:, sl].float())
         acc = acc * corr[..., None] + pv
         m = m_new
     out_g = acc / torch.clamp(l[..., None], min=1e-30)      # (B,G,R,Sq,D)
-    return out_g.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    out = out_g.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    if not stats:
+        return out, None, None
+    lse = m + torch.log(torch.clamp(l, min=1e-30))          # (B,G,R,Sq)
+    return out, out_g, lse
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_forward` with the reference's custom VJP
+    (``src/repro/models/attention.py`` ``_make_flash``).  It saves
+    ``(q, k, v, positions, valid, out_g, lse)`` only; the backward walks
+    the chunks again, recomputes ``P = exp(s - lse)``, and follows the
+    reference's casts: ``dO`` in f32, ``delta = rowsum(dO * out_g)``, P
+    cast to q's dtype before ``dV``, ``dS`` cast to q's dtype before
+    ``dQ``/``dK``, every product accumulated in f32 (bf16 operands widen
+    exactly), pad keys cut from ``dK``/``dV``.  Positions and the valid
+    length get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, kv_positions, kv_valid_len,
+                causal, chunk):
+        out, out_g, lse = flash_forward(q, k, v, q_positions, kv_positions,
+                                        causal, chunk, kv_valid_len,
+                                        stats=True)
+        ctx.save_for_backward(q, k, v, q_positions, kv_positions,
+                              kv_valid_len, out_g, lse)
+        ctx.causal, ctx.chunk = causal, chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_positions, kv_positions, valid, out_g, lse = \
+            ctx.saved_tensors
+        causal, chunk = ctx.causal, ctx.chunk
+        b, sq, h, d = q.shape
+        skv, g = k.shape[1], k.shape[2]
+        scale = 1.0 / math.sqrt(d)
+        kp, vp, pp, _ = _padded_chunks(k, v, kv_positions, chunk)
+        qg = _grouped(q, g).float()
+        do = _grouped(dout, g).permute(0, 2, 3, 1, 4).float()  # (B,G,R,Sq,D)
+        delta = (do * out_g).sum(dim=-1)                        # (B,G,R,Sq)
+        dq = torch.zeros(qg.shape, dtype=torch.float32, device=q.device)
+        dks, dvs = [], []
+        for ci in range(kp.shape[1] // chunk):
+            sl = slice(ci * chunk, (ci + 1) * chunk)
+            kb, vb = kp[:, sl].float(), vp[:, sl].float()
+            s = _chunk_scores(qg, kb, pp[:, sl], q_positions, ci, chunk,
+                              causal, valid, scale)
+            p = torch.exp(s - lse[..., None])                   # (B,G,R,Sq,C)
+            dvs.append(torch.einsum("bgrqk,bgrqd->bkgd",
+                                    p.to(q.dtype).float(), do))
+            dp = torch.einsum("bgrqd,bkgd->bgrqk", do, vb)
+            ds = p * (dp - delta[..., None]) * scale
+            dsq = ds.to(q.dtype).float()
+            dq = dq + torch.einsum("bgrqk,bkgd->bqgrd", dsq, kb)
+            dks.append(torch.einsum("bgrqk,bqgrd->bkgd", dsq, qg))
+        dk = torch.cat(dks, dim=1)[:, :skv]
+        dv = torch.cat(dvs, dim=1)[:, :skv]
+        return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
+                dv.to(v.dtype), None, None, None, None, None)
 
 
 def _decode_attention(q, k, v, q_positions, kv_positions, kv_valid_len):

@@ -347,6 +347,20 @@ def _layer(tree, r: int):
     return tree[r]
 
 
+def _unbind(tree, n: int) -> list:
+    """The ``n`` layer views :func:`_layer` gives, each stacked leaf split
+    once: autograd then stacks the layers' gradients in one op, where
+    ``n`` selects would each write a zero leaf and add it."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][r] for k in tree} for r in range(n)]
+    if isinstance(tree, QuantizedLinearParams):
+        fields = [(None,) * n if f is None else f.unbind(0) for f in tree]
+        return [QuantizedLinearParams(*(f[r] for f in fields))
+                for r in range(n)]
+    return list(tree.unbind(0))
+
+
 def _layer_cache(c: Params, r: int, page_table, length):
     """Layer ``r``'s cache of one pattern position: a K/V record for
     attention (dense, paged or log2-quantized paged, by the leaves the
@@ -395,6 +409,7 @@ def forward(cfg: ModelConfig, params: Params, *,
             tokens: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None,
             image_embeds: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None,
             caches: Optional[Params] = None, quant=False,
             return_stats: bool = False,
             valid_len: Optional[torch.Tensor] = None,
@@ -408,7 +423,9 @@ def forward(cfg: ModelConfig, params: Params, *,
     d) cast to the io dtype (the audio stub's frame embeddings); with
     ``image_embeds`` (B, n_img, d), ``img_proj`` of them (a float
     projection) is prepended along the sequence (the vision stub), and
-    positions and cache lengths count those rows.
+    positions and cache lengths count those rows.  ``positions`` ((B, S)
+    int) overrides the positions derived from the cache lengths (rotary
+    angles and causal masks); the cache writes still land at the lengths.
 
     ``caches["length"]`` is an int (whole batch) or a ``(B,)`` int32
     tensor (per-slot, continuous batching): positions, writes and masks
@@ -458,11 +475,13 @@ def forward(cfg: ModelConfig, params: Params, *,
         x = torch.cat([img, x], dim=1)
     b, s, _ = x.shape
     base = caches["length"] if caches is not None else 0
-    ar = torch.arange(s, dtype=torch.int32, device=x.device)
-    if torch.is_tensor(base) and base.dim() == 1:      # per-slot lengths
-        positions = base[:, None] + ar[None]
-    else:
-        positions = (base + ar).expand(b, s)
+    if positions is None:
+        ar = torch.arange(s, dtype=torch.int32, device=x.device)
+        if torch.is_tensor(base) and base.dim() == 1:  # per-slot lengths
+            positions = base[:, None] + ar[None]
+        else:
+            positions = (base + ar).expand(b, s)
+    blocks = [_unbind(blk, cfg.repeats) for blk in params["blocks"]]
     traffic = []
     for r in range(cfg.repeats):
         # the collect list lives for one period, like the reference's
@@ -472,7 +491,7 @@ def forward(cfg: ModelConfig, params: Params, *,
         for i, kind in enumerate(cfg.pattern):
             cache = (None if caches is None else _layer_cache(
                 caches["layers"][i], r, page_table, base))
-            x = _apply_block(cfg, kind, _layer(params["blocks"][i], r), x,
+            x = _apply_block(cfg, kind, blocks[i][r], x,
                              positions, cache, bctx, valid_len=valid_len,
                              chunk_valid=chunk_valid, state_rows=state_rows)
         if return_stats:
@@ -497,6 +516,29 @@ def forward(cfg: ModelConfig, params: Params, *,
              "plane_traffic_fraction": tile_f / torch.clamp(tile_t, min=1.0),
              "element_traffic_fraction": el_f / torch.clamp(el_t, min=1.0)}
     return logits, new_caches, stats
+
+
+def next_token_loss(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
+                    quant=False) -> torch.Tensor:
+    """Causal LM loss (port of the reference's ``next_token_loss``):
+    ``batch`` holds ``tokens`` or ``embeds`` (+ ``image_embeds``),
+    ``labels`` and an optional ``mask``.  The mean over masked positions
+    of the f32 ``logsumexp`` of the logits minus the label's logit; the
+    vision stub's prepended image rows are cut from the logits.  ``quant``
+    routes projections as in :func:`forward` (a float tree stays float)."""
+    logits, _ = forward(cfg, params, tokens=batch.get("tokens"),
+                        embeds=batch.get("embeds"),
+                        image_embeds=batch.get("image_embeds"), quant=quant)
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:     # vision stub's image rows
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    lab = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    nll = lse - lab
+    mask = batch.get("mask")
+    mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def _leaves(tree):

@@ -20,7 +20,10 @@ qwen3 smoke config's (``qk_norm``) as CUDA graphs against
 ragged lists, misaligned views, lists longer than one launch and mixed
 dtypes, replayed from a CUDA graph, and on the paper nets' recorded GEMM
 inputs (narrow, AlexNet at its size) in one launch a net, bit-equal to
-its plain version.
+its plain version.  Training: one f32 smoke train step (smollm, mamba2,
+deepseek-moe) on the card against the host, and the flash-attention
+backward (``FlashAttention``) against torch autograd through the plain
+chunked forward, f32 and bf16, with no score-shaped tensor saved.
 
 Every test here is marked ``cuda`` and skips on a host without an NVIDIA
 GPU.  The file imports no JAX, so it runs where the card is:
@@ -1279,3 +1282,105 @@ def test_bf16_span_survives_a_frame_round_trip(cuda):
     assert torch.equal(bits(d._logits[0]),
                        torch.from_numpy(back.logits.view("int16")))
     assert dec.step()
+
+
+# ---------------------------------------------------------------------------
+# training: a smoke train step and the flash Function on the card
+# ---------------------------------------------------------------------------
+
+def _train_batch(cfg, seed, b=2, s=16):
+    g = torch.Generator().manual_seed(seed)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                                    dtype=torch.int32),
+            "labels": torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                                    dtype=torch.int32),
+            "mask": (torch.rand((b, s), generator=g) < 0.8).float()}
+
+
+@pytest.mark.parametrize("name", ["smollm_135m", "mamba2_780m",
+                                  "deepseek_moe_16b"])
+def test_train_step_on_card_matches_host(cuda, name):
+    """One f32 smoke train step (2 micro-batches, AdamW) on the card
+    against the host: loss within 1e-5 relative, every gradient leaf within
+    1e-4 of its largest magnitude, and the stepped params within 0.05 lr
+    (AdamW normalises each element's step)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train.trainer import make_loss_fn, value_and_grad
+    from repro_torch.tree import flatten_with_path, tree_map
+
+    cfg = get_smoke(name).replace(dtype=torch.float32)
+    host = init_params(cfg, generator=torch.Generator().manual_seed(3),
+                       device="cpu")
+    card = tree_map(lambda t: t.to(cuda), host)
+    batch = _train_batch(cfg, 4)
+    cbatch = {k: v.to(cuda) for k, v in batch.items()}
+    lh, gh = value_and_grad(make_loss_fn(cfg), host, batch)
+    lc, gc = value_and_grad(make_loss_fn(cfg), card, cbatch)
+    assert abs(float(lc) - float(lh)) <= 1e-5 * abs(float(lh))
+    for (key, a), (_, b) in zip(flatten_with_path(gh), flatten_with_path(gc)):
+        b = b.cpu()
+        assert bool(torch.isfinite(b).all()), key
+        assert float((a - b).abs().max()) <= 1e-4 * float(a.abs().max()), key
+    tcfg = TrainConfig(optimizer=adamw.AdamWConfig(lr=1e-3, warmup_steps=1),
+                       micro_batches=2)
+    ph, _, mh = make_train_step(cfg, tcfg)(host, adamw.init(host), batch)
+    pc, _, mc = make_train_step(cfg, tcfg)(card, adamw.init(card), cbatch)
+    assert abs(float(mc["loss"]) - float(mh["loss"])) <= 1e-5 * float(
+        mh["loss"])
+    for (key, a), (_, b) in zip(flatten_with_path(ph), flatten_with_path(pc)):
+        assert float((a - b.cpu()).abs().max()) <= 0.05 * 1e-3, key
+
+
+@pytest.mark.parametrize("chunk", [64, 24])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_function_matches_autograd_on_card(cuda, dtype, chunk):
+    """The flash Function's output and dq, dk, dv against torch autograd
+    through the plain chunked forward (f32 within 2e-5 of each tensor's
+    largest magnitude; bf16 within twice plain autograd's distance from
+    the f32 gradients, or 2^-7), and no saved tensor of a chunk's score
+    shape.  B 2, S 64, 6/2 heads x 32; ``kv_chunk`` 64 and 24 (a padded
+    last chunk)."""
+    from repro_torch.models import attention
+
+    b, s, h, g, d = 2, 64, 6, 2, 32
+    gen = torch.Generator(device=cuda).manual_seed(chunk)
+    base = [torch.randn(shape, generator=gen, device=cuda)
+            for shape in ((b, s, h, d), (b, s, g, d), (b, s, g, d),
+                          (b, s, h, d))]
+    pos = torch.arange(s, device=cuda, dtype=torch.int32).expand(b, s)
+
+    def run(fn, q, k, v, do, saved=None):
+        ts = [t.detach().requires_grad_() for t in (q, k, v)]
+
+        def pack(t):
+            if saved is not None:
+                saved.append(tuple(t.shape))
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            out = fn(*ts)
+            grads = torch.autograd.grad(out, ts, do)
+        return [out.detach()] + list(grads)
+
+    def rel(x, y):
+        return float((x.float() - y.float()).abs().max()
+                     / y.float().abs().max())
+
+    def plain(q, k, v):
+        return attention.flash_forward(q, k, v, pos, pos, True, chunk)[0]
+
+    q, k, v, do = (t.to(dtype) for t in base)
+    saved = []
+    got = run(lambda q_, k_, v_: attention.flash_attention(
+        q_, k_, v_, pos, pos, kv_chunk=chunk), q, k, v, do, saved)
+    want = run(plain, q, k, v, do)
+    assert saved and not [sh for sh in saved if sh[-2:] == (s, chunk)]
+    if dtype == torch.float32:
+        assert max(rel(x, y) for x, y in zip(got, want)) <= 2e-5
+    else:
+        f32 = run(plain, *(t.float() for t in (q, k, v, do)))
+        for x, y, r in zip(got, want, f32):
+            assert rel(x, r) <= max(2 * rel(y, r), 2 ** -7)

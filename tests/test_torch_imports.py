@@ -53,7 +53,11 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
     for want in ("repro_torch.models.paper_nets", "repro_torch.simulator",
                  "repro_torch.simulator.stats", "repro_torch.serving.engine",
                  "repro_torch.kernels.log2quant.ops",
-                 "repro_torch.serving.workers", "repro_torch.serving.router"):
+                 "repro_torch.serving.workers", "repro_torch.serving.router",
+                 "repro_torch.tree", "repro_torch.data.pipeline",
+                 "repro_torch.optim.adamw", "repro_torch.train.trainer",
+                 "repro_torch.checkpoint.manager",
+                 "repro_torch.launch.train"):
         assert want in mods, want
     files = {p for p in PORT.rglob("*.py") if "build" not in p.parts}
     assert len(mods) + 1 >= len(files)      # + the package's __init__
