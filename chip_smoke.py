@@ -186,7 +186,7 @@ Phases, in order; any failure exits non-zero before the result line:
    K2's plain versions, its time on both plane layouts beside its bound,
    and the routed-expert products of the step beside their byte bound.
    Then phase 7's trace and ``ServeConfig`` with K3, packed planes with
-   stats, as graphs at the first ``SCHED_LAYERS`` (14) layers: tok/s, ms
+   stats, as graphs at the first ``SCHED_LAYERS`` (8) layers: tok/s, ms
    per decode step (host, device), nodes per step, ``compile_stats()``;
    the first ``CUT_LAYERS`` (4) layers over the
    same trace as graphs and under ``engine.eager()``, held equal, and
@@ -214,10 +214,10 @@ Phases, in order; any failure exits non-zero before the result line:
    decode step held against K1's and K2's plain versions on their real
    activations, then timed by CUDA-graph replay beside their bound and
    the plain version.  Then phase 7's trace and ``ServeConfig`` with K3,
-   packed planes with stats, as graphs at the first ``SCHED_LAYERS`` (16)
+   packed planes with stats, as graphs at the first ``SCHED_LAYERS`` (8)
    layers (tok/s, ms per decode step, nodes, ``compile_stats()``, K3 on
    the tick touching most pages at (8, 8, 128) as phase 7 times it, 64
-   launches over the pool's 16 layers), and the model's first ``CUT_LAYERS`` (4)
+   launches over the pool's 8 layers), and the model's first ``CUT_LAYERS`` (4)
    layers over the same trace as graphs and under ``engine.eager()``,
    held equal (the eager run of the whole trace at 64 layers would take
    minutes).  Last, the qwen3, qwen2.5 and
@@ -293,10 +293,43 @@ Phases, in order; any failure exits non-zero before the result line:
    at full width in two child processes: 4 steps with a checkpoint every
    2, then ``--steps 6 --resume auto``, which resumes at step 4.
 
+16. serving across ranks on the model axis (``models/sharding.py``,
+   ``launch/{mesh, shardings}.py``), ``TP_RANKS`` (4) ranks as threads of
+   one local group on the one card, eager (a graph cannot hold the
+   group's hand-overs on the host).  First K3 and K4 with ``attn_splits`` 4 spread over 2
+   and 4 ranks on phases 7 and 9's busiest ticks (smollm-135m's geometry,
+   (3, 3, 64)), each rank walking its run of splits, the partials gathered
+   along the split axis: bit-equal to the one-rank call, partials and
+   merge.  Then deepseek-moe-16b at full width (phase 11's weights from
+   seed 0, its prompt): heads, the shared experts' columns and the vocab
+   cut over the 4 ranks, the 64 routed experts 16 a rank; the full tree
+   freed once the shards are cut.  One-shot at batch 4, prompt 64, 32 new
+   tokens, float bf16 and packed planes with stats: tokens equal to phase
+   11's, or a first divergence printed with both runs' margins there and
+   how far their logits sit apart at each step up to it, one card's
+   tokens fed to both (packed planes: the ranks must give one card's
+   logits bit for bit over the whole prefill, so that a later decode
+   step's bf16 rounding, a float product whose reduction order follows
+   its batch or width, is what parts them), each
+   step's element-granular traffic equal to phase 11's; every K2 call of
+   the first decode step (196) reduced over the ranks bit-equal to one
+   call on the full planes with the same input, the tile counts summed
+   equal where a rank's K is a multiple of 128.  The scheduler at the
+   first ``CUT_LAYERS`` layers, phase 11's ``ServeConfig`` and trace, K3
+   on each rank's 4 kv heads: finish reasons and every tick's page
+   table equal to phase 11's eager run of the same layers, every rank's
+   tokens equal, the requests whose tokens equal phase 11's counted.  Per-rank
+   weight and pool bytes, the card's peak, each rank's K2 and K3 launches
+   a forward, tok/s and the host time each rank waited for its turn.
+   Where two or more cards are visible, the one-shot again as one NCCL
+   process per card with CUDA graphs (``launch/serve.py --nccl``), its
+   sample tokens equal to phase 11's; on one card a line says that run
+   did not happen.
+
 Prints a ``serving:`` line (graph and eager tok/s of phases 4, 7, 9, 10,
 11 and 12), a ``paper evaluation:`` line (phase 13's nets and figures), a
 ``disaggregated:`` line (phase 14), a ``training:`` line (phase 15), a
-``kernels:`` line, the JSON kernel table and, last, the result line
+``tensor parallel:`` line (phase 16), a ``kernels:`` line, the JSON kernel table and, last, the result line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX and nothing
 of the JAX package.
 """
@@ -350,8 +383,9 @@ F32_LAYERS = 4                      # depth of phases 7 and 9's f32 runs
 CUT_LAYERS = 4                      # depth of phases 7, 9-12 eager runs
 # depth of phases 11 and 12's whole-trace scheduler runs (graphs), cut
 # from 28 and 64 layers to keep the script inside its time limit with
-# phase 15; the one-shot runs and decode-step programs keep full depth
-SCHED_LAYERS = {"deepseek-moe-16b": 14, "qwen3-32b": 16}
+# phases 15 (to 14 and 16) and 16 (to 8 and 8); the one-shot runs and
+# decode-step programs keep full depth
+SCHED_LAYERS = {"deepseek-moe-16b": 8, "qwen3-32b": 8}
 # phases 6 and 8 at the serving path's geometry (page_len 16, 32 table
 # columns): rows long enough that every warp of a block walks several
 # pages, at smollm-135m's (G, R, D), at D = 128 and R = 8, at
@@ -369,6 +403,11 @@ PAPER_NETS = ["alexnet", "ptblm", "transformer", "bert-base", "bert-large"]
 PAPER_K1_LAUNCHES = {"alexnet": 1, "ptblm": 1, "transformer": 1,
                      "bert-base": 1, "bert-large": 1}
 FLIP_LIMIT = 1e-4
+TP_RANKS = 4                         # phase 16's local group
+# phase 16's float bf16 run may part from one card's tokens only where one
+# card's top token leads the ranks' choice by at most this many bf16 ulps
+# of the top logit (its row-parallel partials sum in another order)
+NEAR_TIE_ULPS = 4
 # phase 14: mamba2-780m's routed requests (the first of phase 10's trace)
 MAMBA_ROUTED = 8
 # K1's list call and its per-tensor yardstick are timed with this many
@@ -807,6 +846,11 @@ def main() -> None:
     m15 = phase15(torch, dev, card, l2_ops, bm_ops, pa_ops)
     print(f"  (phase 15 done at {time.perf_counter() - t_main:.0f} s)")
     print(f"training ({card}): {json.dumps(m15)}")
+
+    # -- phase 16: serving across ranks on the model axis ------------------
+    m16 = phase16(torch, dev, card, l2_ops, bm_ops, pa_ops, k3, k4, m11)
+    print(f"  (phase 16 done at {time.perf_counter() - t_main:.0f} s)")
+    print(f"tensor parallel ({card}): {json.dumps(m16)}")
     serving = {"phase4": {tag: {
         "graph_tok_s": BATCH * NEW / r["t_graph"],
         "eager_tok_s": BATCH * NEW / r["t_eager"],
@@ -839,6 +883,9 @@ def main() -> None:
             # alone (phase 12)
             entry["qwen3_32b"] = {"launches": m12["k2_launches"],
                                   **m12["k2"]}
+            # the model axis: phase 16's packed one-shot on 4 local ranks
+            entry["deepseek_moe_16b_tp4"] = {"launches": m16["one_shot"][
+                "packed+stats"]["launches"]["bitplane_matmul"]}
         else:
             # the paper evaluation: K1 alone on every recorded GEMM input
             # of the five nets (phase 13)
@@ -854,7 +901,9 @@ def main() -> None:
         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
         "scope": k3["scope"], "eager_ms": k3["eager_ms"],
         "deepseek_moe_16b": {"launches": m11["k3_launches"], **m11["k3"]},
-        "qwen3_32b": {"launches": m12["k3_launches"], **m12["k3"]}})
+        "qwen3_32b": {"launches": m12["k3_launches"], **m12["k3"]},
+        "deepseek_moe_16b_tp4": {"launches": m16["scheduler"]["launches"][
+            "paged_attention"]}})
     table.append({
         "name": "paged_attention_quant", "route": "cuda",
         "source": "src/repro_torch/kernels/paged_attention/csrc/"
@@ -1565,8 +1614,9 @@ def audited(torch, inner, audit):
     from repro_torch.kernels.paged_attention.ref import \
         paged_attention_reference
 
-    def call(q, k_pool, v_pool, page_table, lengths, *, splits=1):
-        out = inner(q, k_pool, v_pool, page_table, lengths, splits=splits)
+    def call(q, k_pool, v_pool, page_table, lengths, *, splits=1, **kw):
+        out = inner(q, k_pool, v_pool, page_table, lengths, splits=splits,
+                    **kw)
         ref = paged_attention_reference(q, k_pool, v_pool, page_table,
                                         lengths)
         # rows of slots that hold pages (a retired slot's table is all
@@ -2107,6 +2157,7 @@ def phase7(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
         del runs, p, cparams
 
     out.update(k3_tick(torch, dev, card, cfg, pa_ops, best))
+    out["tick"] = best                      # phase 16's split-KV check
     return out
 
 
@@ -2254,9 +2305,9 @@ def audited_quant(torch, inner, audit):
                                               _quant_paged_gather)
 
     def call(q, kc, ks, vc, vs, kt, vt, table, lengths, *, n_bits=4,
-             splits=1):
+             splits=1, **kw):
         out = inner(q, kc, ks, vc, vs, kt, vt, table, lengths, n_bits=n_bits,
-                    splits=splits)
+                    splits=splits, **kw)
         kg = _quant_paged_gather(kc, ks, kt, table, lengths, n_bits, kt.dtype)
         vg = _quant_paged_gather(vc, vs, vt, table, lengths, n_bits, vt.dtype)
         kv_pos = torch.arange(kg.shape[1], dtype=torch.int32,
@@ -2563,7 +2614,8 @@ def phase9(torch, dev, card, pa_ops, l2_ops, bm_ops) -> dict:
           f"whole pool, then _paged_gather + scaled_dot_product_attention "
           f"{pool_ms:.4f} ms")
     return dict(launches=out_launches, serve=serve_out, combined=combined,
-                ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                tick=best, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=lib_ms, context_whole_pool_ms=pool_ms,
                 eager_ms=eager, max_abs_err=err,
@@ -3207,6 +3259,10 @@ def deepseek_full(torch, dev, card, kernels, bm_ops, pa_ops) -> dict:
           f"K1 0; plane traffic per decode step: tile "
           f"{float(tile[:-1].mean()):.6f}, element "
           f"{float(elem[:-1].mean()):.6f}")
+    # what phase 16 holds its ranks against (before the scheduler runs,
+    # whose launch counts its eager forwards would enter)
+    ref16 = one_shot_ref(torch, cfg, prompt, runs, (
+        ("float", params, False), ("packed+stats", pparams, True)))
     steps = step_programs(torch, dev, cfg, prompt, (
         ("float", params, False), ("packed", pparams, True)), per_fwd)
 
@@ -3281,7 +3337,8 @@ def deepseek_full(torch, dev, card, kernels, bm_ops, pa_ops) -> dict:
         for tag, r in runs.items()}, "decode_step": steps,
         "step_bytes": sb}
     out = {"serve": serve_out, "k2": k2t,
-           "k2_launches": runs["packed+stats"]["replayed"]["bitplane_matmul"]}
+           "k2_launches": runs["packed+stats"]["replayed"]["bitplane_matmul"],
+           "one_shot_ref": ref16}
     for mode, c, _ in plan:
         res, sched, fwd, wall, run = sruns[mode]
         launches = (run["replayed"] if mode.endswith("graph") else
@@ -3325,7 +3382,11 @@ def deepseek_full(torch, dev, card, kernels, bm_ops, pa_ops) -> dict:
             check(0 < tile_r <= 1, f"deepseek traffic fraction {tile_r}")
     held_equal(f"deepseek packed+stats, {CUT_LAYERS} layers",
                sruns["cut/graph"], sruns["cut/eager"])
-    del sruns
+    eres, _, _, _, erun = sruns["cut/eager"]
+    out["sched_ref"] = {"results": [(r.tokens, r.finish_reason)
+                                    for r in eres],
+                        "tables": erun["tables"]}
+    del sruns, eres, erun
     worst = max(range(len(drops)), key=drops.__getitem__)
     check(drops[worst] > 0, "deepseek: no tick dropped a routed slot")
     cap8 = min(int(SERVE["max_slots"] * cfg.experts_per_token
@@ -3350,6 +3411,48 @@ def deepseek_full(torch, dev, card, kernels, bm_ops, pa_ops) -> dict:
           f"expert)")
     out["k3"] = k3_tick(torch, dev, card, cfg, pa_ops, best)
     print(f"  (deepseek-moe-16b took {time.perf_counter() - t_phase:.0f} s)")
+    return out
+
+
+def forced_logits(torch, cfg, params, prompt, toks, quant, steps,
+                  mesh=None) -> list:
+    """The logits behind each of the first ``steps`` tokens of a one-shot
+    run (the prefill's, then each decode step's), the run's own tokens fed
+    back (``toks`` (B, NEW)), eagerly, on the host."""
+    from repro_torch.models.model import init_caches
+    from repro_torch.serving import engine
+
+    with engine.eager():
+        caches = init_caches(cfg, prompt.shape[0], prompt.shape[1] + NEW,
+                             device=prompt.device)
+        logits, caches = engine.make_prefill_step(cfg, quant, mesh=mesh)(
+            params, {"tokens": prompt}, caches)
+        step = engine.make_serve_step(cfg, quant, mesh=mesh)
+        out = [logits.cpu()]
+        toks = toks.to(prompt.device)
+        for t in range(steps - 1):
+            logits, caches = step(params, caches, toks[:, t:t + 1])
+            out.append(logits.cpu())
+    return out
+
+
+def one_shot_ref(torch, cfg, prompt, runs, variants) -> dict:
+    """Phase 16's reference: each one-shot run's tokens and stats, the
+    logits of one eager forward over the prompt (every position) and the
+    logits behind each of its tokens (``forced_logits``)."""
+    from repro_torch.models.model import forward
+    from repro_torch.serving import engine
+
+    out = {}
+    for tag, p, quant in variants:
+        r = runs[tag]
+        with engine.eager():
+            logits = forward(cfg, p, tokens=prompt, quant=quant)[0]
+        out[tag] = {"toks": r["toks"].cpu(), "prompt_logits": logits.cpu(),
+                    "step_logits": forced_logits(torch, cfg, p, prompt,
+                                                 r["toks"], quant, NEW),
+                    "stats": None if r["stats"] is None else
+                    {k: v.cpu() for k, v in r["stats"].items()}}
     return out
 
 
@@ -5006,6 +5109,505 @@ def phase15(torch, dev, card, l2_ops, bm_ops, pa_ops) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"  (phase 15 took {out['phase_s']:.0f} s)")
     return out
+
+# ---------------------------------------------------------------------------
+# phase 16: serving across ranks on the model axis
+# ---------------------------------------------------------------------------
+
+def local_mesh(m: int):
+    """A ``1 x m`` mesh over ``m`` ranks as threads of this process."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import sharding as sh
+
+    return Mesh((1, m), sh.LocalGroup(m, timeout=600))
+
+
+def split_kv_over_ranks(torch, dev, pa_ops, k3_best, k4_best) -> dict:
+    """K3 on phase 7's busiest tick and K4 on phase 9's (layer 0 of their
+    pools, their tables and lengths, random bf16 queries at smollm-135m's
+    geometry), ``attn_splits`` 4 spread over 2 and 4 local ranks: each
+    rank's launch on its run of splits, the partials gathered along the
+    split axis, equal bit for bit to the one-rank call's, and so is their
+    merge."""
+    splits, pl = 4, SERVE["page_len"]
+    gen = torch.Generator(device=dev).manual_seed(16)
+    out = {}
+    for kind, best in (("k3", k3_best), ("k4", k4_best)):
+        table = best["table"].contiguous()
+        lens = best["lens"].to(torch.int32)
+        if kind == "k4":                      # full pages, as K4 is called
+            lens = ((lens - 1).clamp(min=0) // pl * pl).to(torch.int32)
+            kern = pa_ops.paged_attention_quant
+            pools = tuple(best[k][0] for k in ("k_codes", "k_scale",
+                                               "v_codes", "v_scale"))
+            tail = (KV_BITS,)
+            g = best["k_codes"].shape[-2]
+        else:
+            kern = pa_ops.paged_attention
+            pools, tail = (best["k"][0], best["v"][0]), ()
+            g = best["k"].shape[-2]
+        check(table.shape[1] % splits == 0, f"{kind}: table {table.shape}")
+        qg = torch.randn((table.shape[0], g, 3, 64), generator=gen,
+                         device=dev, dtype=torch.bfloat16)
+        want = kern(qg, *pools, table, lens, *tail, splits)
+        merged = pa_ops.merge_split_softmax(want[1], want[2], want[0], axis=2)
+        for m in (2, 4):
+            mesh = local_mesh(m)
+
+            def rank(_):
+                tab, ln, sp = pa_ops.rank_runs(table, lens, pl, splits)
+                return pa_ops.gather_runs(*kern(qg, *pools, tab, ln, *tail,
+                                                sp))
+            for got in mesh.run(rank):
+                check(all(torch.equal(a, b) for a, b in zip(got, want))
+                      and torch.equal(pa_ops.merge_split_softmax(
+                          got[1], got[2], got[0], axis=2), merged),
+                      f"{kind} split over {m} ranks differs from one rank")
+        out[kind] = {"touched": best["touched"], "lengths":
+                     best["lens"].tolist(), "ranks": [2, 4]}
+        print(f"  {kind.upper()} with attn_splits {splits} over 2 and 4 "
+              f"local ranks (each walks its run, partials gathered along "
+              f"the split axis) on the busiest tick ({best['touched']} "
+              f"pages): partials and merge bit-equal to the one-rank call")
+    return out
+
+
+def divergence(tag, row, step, want, got, noise, ranks_logits,
+               exact: bool) -> dict:
+    """A divergence of the ranks' tokens from one card's at (``row``,
+    ``step``), both runs fed one card's tokens up to there
+    (``ranks_logits``, ``want["step_logits"]``): prints each run's margin
+    between the two tokens and how far the two runs' logits sit apart at
+    each step up to there, then fails unless it is a near tie.  Where the
+    path is ``exact`` (packed planes: every sum across ranks is integer or
+    a sum with zeros, attention at one card's head count) nothing excuses
+    a divergence.  A bf16 float run sums its row-parallel partials in
+    another order than one card's GEMM: one card's top token may lose
+    there only by at most ``NEAR_TIE_ULPS`` bf16 ulps."""
+    a, b = int(want["toks"][row, step]), int(got[row, step])
+    apart = [float((r.float() - o.float()).abs().max()) for r, o in
+             zip(ranks_logits, want["step_logits"])]
+
+    def margin(lg, top, other):
+        lg = lg.float()
+        ulp = 2.0 ** (math.floor(math.log2(max(abs(float(lg[top])),
+                                                1e-30))) - 7)
+        m = float(lg[top] - lg[other])
+        return m, m / ulp
+
+    m1, u1 = margin(want["step_logits"][step][row], a, b)
+    m2, u2 = margin(ranks_logits[step][row], b, a)
+    first = next((t for t, x in enumerate(apart) if x), None)
+    print(f"  {tag}: first divergence from phase 11 at row {row} step "
+          f"{step}: one card's token {a} leads the ranks' {b} by {m1:.6g} "
+          f"({u1:.2f} bf16 ulps) in its logits, the ranks' {b} leads {a} by "
+          f"{m2:.6g} ({u2:.2f}) in theirs; fed one card's tokens, the two "
+          f"runs' logits sit {[round(x, 6) for x in apart]} apart at steps "
+          f"0..{step} (first apart at step {first}), {noise:.6g} over the "
+          f"prompt")
+    check(not exact and u1 <= NEAR_TIE_ULPS,
+          f"deepseek tp {tag}: the ranks' tokens part from phase 11's at row "
+          f"{row} step {step}, where one card's token leads by {u1:.2f} bf16 "
+          f"ulps: " + ("the packed path must give one card's tokens" if exact
+                       else f"not a near tie (at most {NEAR_TIE_ULPS})"))
+    return {"row": row, "step": step, "one_card_margin": m1,
+            "one_card_ulps": u1, "ranks_margin": m2, "ranks_ulps": u2,
+            "logits_apart": apart, "first_apart_step": first}
+
+
+def first_divergence(got, want):
+    """(row, step) of the earliest step where the token tensors differ."""
+    diff = (got != want).nonzero()
+    if not len(diff):
+        return None
+    step = int(diff[:, 1].min())
+    row = int(diff[diff[:, 1] == step][0, 0])
+    return row, step
+
+
+def tp_recorder(bm_ops, sink):
+    """Patch ``log2_bitplane_matmul`` to record each call's inputs into
+    ``sink[rank]`` (the caller restores it)."""
+    from repro_torch.models import sharding as sh
+
+    inner = bm_ops.log2_bitplane_matmul
+
+    def record(x, act_scale, planes, n_bits=4, **kw):
+        sink.setdefault(sh.model_rank(), []).append(x.clone())
+        return inner(x, act_scale, planes, n_bits, **kw)
+    bm_ops.log2_bitplane_matmul = record
+    return inner
+
+
+def full_calls(cfg, pparams) -> list:
+    """One forward's quantized projections in call order (``quant_names``):
+    the full packed planes and act_scale of each, as layer views."""
+    blk = pparams["blocks"][0]
+    shared = blk["mlp"]["shared"]
+    calls = []
+    for layer in range(cfg.n_layers):
+        for name in PROJ[:4]:
+            q = blk[f"{name}_q"]
+            calls.append((q.planes[layer], q.act_scale[layer]))
+        for name in PROJ[4:]:
+            q = shared[f"{name}_q"]
+            calls.append((q.planes[layer], q.act_scale[layer]))
+    return calls
+
+
+def deepseek_tp(torch, dev, card, kernels, bm_ops, ref) -> dict:
+    """deepseek-moe-16b at full width as ``TP_RANKS`` local ranks: the
+    one-shot float and packed+stats, the first decode step's K2 calls, the
+    scheduler at ``CUT_LAYERS`` layers; each held against phase 11."""
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_config
+    from repro_torch.core.shiftadd import QuantCtx
+    from repro_torch.kernels import _build
+    from repro_torch.launch.shardings import cut_shards, params_shardings
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.model import forward, init_caches, init_params
+    from repro_torch.models.quantize import quantize_model_params
+    from repro_torch.serving import ServeScheduler, engine
+
+    t0 = time.perf_counter()
+    m = TP_RANKS
+    cfg = get_config("deepseek-moe-16b")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, generator=gen, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    pparams = quantize_model_params(cfg, params, pack=True)
+    del params
+    torch.cuda.synchronize()
+    t_built = time.perf_counter() - t0
+    full_bytes = sum(t.nbytes for t in tree_util.leaves(pparams))
+    fcalls = full_calls(cfg, pparams)
+    mesh = local_mesh(m)
+    specs = params_shardings(mesh, pparams, fsdp=False,
+                             kv_heads=cfg.n_kv_heads)
+    # leaf by leaf, each full leaf freed once its four pieces are cut
+    shards = cut_shards(pparams, specs, mesh, range(m), consume=True)
+    del pparams, specs
+    gc_cuda(torch)
+    t_cut = time.perf_counter() - t0 - t_built
+    peak_cut = torch.cuda.max_memory_allocated()
+    ids = [{id(t) for t in tree_util.leaves(s)} for s in shards]
+    shared_ids = set.intersection(*ids)
+    per_rank = [sum(t.nbytes for t in tree_util.leaves(s) if id(t) not in
+                    shared_ids) for s in shards]
+    shared_bytes = sum(t.nbytes for t in tree_util.leaves(shards[0])
+                       if id(t) in shared_ids)
+    resident = torch.cuda.memory_allocated()
+    print(f"phase 16: {cfg.name} full width as {m} local ranks on one card "
+          f"(heads {cfg.n_heads // m} a rank, shared-expert columns "
+          f"{cfg.moe_d_ff * cfg.n_shared_experts // m}, vocab "
+          f"{cfg.vocab_size // m}, routed experts {cfg.n_experts // m}): "
+          f"full tree {full_bytes / 1e9:.3f} GB built and quantized on "
+          f"packed planes in {t_built:.1f} s, cut in {t_cut:.1f} s; per rank "
+          f"{[round(b / 1e9, 4) for b in per_rank]} GB of its own weights "
+          f"+ {shared_bytes / 1e9:.4f} GB replicated (norms, router, "
+          f"scales) shared by the ranks' threads; {resident / 1e9:.3f} GB "
+          f"on the card after the full tree was freed, peak "
+          f"{peak_cut / 1e9:.3f} GB while cutting ({card})")
+    out = {"per_rank_weight_bytes": per_rank, "shared_bytes": shared_bytes,
+           "peak_cut_bytes": peak_cut, "resident_bytes": resident}
+
+    # -- one-shot, float then packed+stats, every rank eager -------------
+    runs = {}
+    for tag, quant, stats in (("float", False, False),
+                              ("packed+stats", True, True)):
+        def rank(r, quant=quant, stats=stats):
+            before = _build.thread_launches()
+            t1 = time.perf_counter()
+            res = engine.greedy_generate(cfg, shards[r], prompt, NEW,
+                                         quant=quant, with_stats=stats,
+                                         device=dev, mesh=mesh)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            after = _build.thread_launches()
+            return res, dt, {k: after.get(k, 0) - before.get(k, 0)
+                             for k in after}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        with engine.eager():
+            res = mesh.run(rank)
+        counts = {k.__name__: k.launches for k in kernels}
+        waits = list(mesh.group.barrier_seconds)
+        toks = [(r[0][0] if stats else r[0]) for r in res]
+        check(all(torch.equal(t, toks[0]) for t in toks),
+              f"deepseek tp {tag}: ranks disagree")
+        want = ref["one_shot_ref"][tag]
+        got = toks[0].cpu()
+        div = first_divergence(got, want["toks"])
+        # how far the ranks' logits sit from one card's on the prompt
+        with engine.eager():
+            lg = mesh.run(lambda r, quant=quant: forward(
+                cfg, shards[r], tokens=prompt, quant=quant)[0])
+        noise = float((lg[0].cpu().float()
+                       - want["prompt_logits"].float()).abs().max())
+        del lg
+        check(not quant or noise == 0.0, f"deepseek tp {tag}: the ranks' "
+              f"prompt logits part from one card's by {noise:.6g}")
+        rec = {"wall_s": res[0][1], "tok_s": BATCH * NEW / res[0][1],
+               "launches": counts, "rank_launches": [r[2] for r in res],
+               "wait_s": waits, "peak_bytes": torch.cuda.max_memory_allocated(),
+               "tokens_equal": div is None, "prompt_logits_max_diff": noise}
+        want_k2 = m * len(fcalls) * NEW if quant else 0
+        check(counts["bitplane_matmul"] == want_k2 and counts["log2quant"]
+              == counts["paged_attention"] == counts["paged_attention_quant"]
+              == 0, f"deepseek tp {tag}: launches {counts}, expected K2 "
+              f"{want_k2}")
+        if div is not None:
+            row, step = div
+            rec["divergence"] = divergence(
+                tag, row, step, want, got, noise,
+                mesh.run(lambda r, quant=quant: forced_logits(
+                    torch, cfg, shards[r], prompt, want["toks"], quant,
+                    step + 1, mesh=mesh))[0], exact=quant)
+        if stats:
+            st = res[0][0][1]
+            for key in ("plane_traffic_fraction", "element_traffic_fraction"):
+                rec[key] = [float(v) for v in st[key].cpu()]
+            # the packed tokens equal phase 11's (checked above); each
+            # fraction is a ratio of sums over ranks, so within f32 rounding
+            ref_el = want["stats"]["element_traffic_fraction"]
+            el = st["element_traffic_fraction"].cpu()
+            check(bool(torch.allclose(el, ref_el, rtol=1e-6, atol=0)),
+                  f"deepseek tp: element traffic {el} differs from phase "
+                  f"11's {ref_el}")
+            rec["element_equal_phase11"] = bool(torch.equal(el, ref_el))
+            rec["tile_phase11"] = [float(v) for v in
+                                   want["stats"]["plane_traffic_fraction"]]
+        runs[tag] = rec
+        per_fwd = {k: v / NEW for k, v in res[0][2].items()}
+        print(f"  one-shot {tag} on {m} ranks, eager: {BATCH * NEW} tokens "
+              f"in {res[0][1]:.3f} s = {rec['tok_s']:.1f} tok/s; tokens "
+              + ("equal phase 11's" if div is None else "diverge (above)")
+              + f"; launches {counts} (rank 0 a forward: {per_fwd}); each "
+              f"rank waited {[round(w, 3) for w in waits]} s for its turn "
+              f"(the other ranks' host work); card peak "
+              f"{rec['peak_bytes'] / 1e9:.3f} GB ({card})")
+        if stats:
+            print(f"    element traffic of all {NEW} forwards bit-equal "
+                  f"to phase 11's: "
+                  f"{rec['element_equal_phase11']} (within 1e-6: checked); "
+                  f"tile a step {rec['plane_traffic_fraction'][:3]}... vs "
+                  f"phase 11's {rec['tile_phase11'][:3]}... (the shared "
+                  f"experts' down cuts K = 2816 into 704-row runs, 5.5 "
+                  f"tiles)")
+    out["one_shot"] = runs
+
+    # -- the first decode step's K2 calls, reduced over the ranks ---------
+    sink = {}
+
+    def k2_rank(r):
+        caches = init_caches(cfg, BATCH, PROMPT + 1, device=dev)
+        logits, caches = engine.make_prefill_step(cfg, True, mesh=mesh)(
+            shards[r], {"tokens": prompt}, caches)
+        sink.pop(sh.model_rank(), None)       # keep the step's calls only
+        ctx = QuantCtx(capture=[])
+        engine.make_serve_step(cfg, ctx, mesh=mesh)(
+            shards[r], caches,
+            torch.argmax(logits, -1).to(torch.int32)[:, None])
+        return ctx.capture
+
+    inner = tp_recorder(bm_ops, sink)
+    try:
+        with engine.eager():
+            caps = mesh.run(k2_rank)
+    finally:
+        bm_ops.log2_bitplane_matmul = inner
+    from repro_torch.kernels.bitplane_matmul.ops import plane_traffic_counts
+    check(all(len(sink[r]) == len(caps[r]) == len(fcalls) for r in range(m)),
+          f"deepseek tp: K2 calls a decode step "
+          f"{[len(sink.get(r, [])) for r in range(m)]}, expected "
+          f"{len(fcalls)}")
+    kinds = {"column": 0, "row": 0}
+    tiles = {"aligned_equal": 0, "unaligned": []}
+    names = quant_names(cfg)
+    for i, (planes, act) in enumerate(fcalls):
+        xs = [sink[r][i] for r in range(m)]
+        ys = [caps[r][i][4] for r in range(m)]
+        k_full = planes.shape[1] * 8                # packed along K
+        if xs[0].shape[-1] == k_full:               # column-parallel
+            check(all(torch.equal(x, xs[0]) for x in xs),
+                  f"call {i}: ranks' inputs differ")
+            x_full, y = xs[0], torch.cat(ys, dim=-1)
+            kind = "column"
+        else:                                       # row-parallel
+            x_full, y = torch.cat(xs, dim=-1), ys[0]
+            for part in ys[1:]:
+                y = y + part
+            kind = "row"
+        want_y, q = bm_ops.log2_bitplane_matmul(x_full, act, planes,
+                                                codes=True)
+        check(torch.equal(y, want_y), f"deepseek tp: K2 call {i} "
+              f"({names[i]}, {kind}) reduced over {m} ranks differs from "
+              f"one call on the full planes")
+        kinds[kind] += 1
+        n_full = planes.shape[-1]
+        f1, t1 = plane_traffic_counts(q.exp)
+        one = (float(f1) * n_full, float(t1) * n_full)
+        if kind == "column":
+            parts = [(float(a) * c[3].shape[-1], float(b) * c[3].shape[-1])
+                     for c in (caps[r][i] for r in range(m))
+                     for a, b in [plane_traffic_counts(c[1])]]
+        else:
+            parts = [(float(a) * n_full, float(b) * n_full)
+                     for c in (caps[r][i] for r in range(m))
+                     for a, b in [plane_traffic_counts(c[1])]]
+        summed = tuple(sum(p[j] for p in parts) for j in range(2))
+        k_rank = xs[0].shape[-1]
+        if kind == "column" or k_rank % 128 == 0:
+            check(summed == one, f"deepseek tp: call {i} ({names[i]}) tile "
+                  f"counts {summed} summed over ranks != one call's {one}")
+            tiles["aligned_equal"] += 1
+        elif i < 7:
+            tiles["unaligned"].append({"call": names[i], "k_rank": k_rank,
+                                       "ranks": summed, "one": one})
+    torch.cuda.synchronize()
+    out["k2_step"] = {"calls": len(fcalls), **kinds, "tiles": tiles}
+    print(f"  first decode step: all {len(fcalls)} K2 calls reduced over "
+          f"{m} ranks bit-equal to one call on the full planes with the "
+          f"same input ({kinds['column']} column-parallel: outputs "
+          f"concatenated; {kinds['row']} row-parallel: int32 partials "
+          f"summed); tile counts summed over ranks equal on "
+          f"{tiles['aligned_equal']} calls (K a rank a multiple of 128), "
+          f"not on the shared experts' down (K a rank 704): layer 0 "
+          f"{tiles['unaligned']}")
+    del sink, caps
+    engine.clear_generate_cache()
+
+    # -- the scheduler at CUT_LAYERS layers, K3 on each rank's heads ------
+    ccfg = cfg.replace(n_layers=CUT_LAYERS)
+    cuts = [first_layers(cfg, s, CUT_LAYERS)[1] for s in shards]
+    trace = serve_trace(cfg.vocab_size)
+
+    def sched_rank(r):
+        sched = ServeScheduler(ccfg, cuts[r], serve_config(
+            quant=True, kernel=True, stats=True), device=dev, mesh=mesh)
+        for p in trace:
+            sched.submit(p, max_new=SERVE_NEW)
+        progs = sched.programs()
+        tables = []
+        before = _build.thread_launches()
+        t1 = time.perf_counter()
+        while sched.pending:
+            check(sched.step_tick(), "a tick found nothing to do")
+            tables.append(sched._table.copy())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        after = _build.thread_launches()
+        calls = {n: (progs[n].calls if n in progs else 0)
+                 for n in ("tick", "mixed", "chunk", "prefill")}
+        fwd = {"decode": sched.tick_steps * (calls["tick"] + calls["mixed"]),
+               "chunk": calls["chunk"] + calls["mixed"],
+               "prefill": calls["prefill"]}
+        pool = sched._pool["layers"][0]["k"]
+        return (sched.run(), tables, wall, fwd,
+                {k: after.get(k, 0) - before.get(k, 0) for k in after},
+                pool.shape, pool.nbytes * 2 * len(sched._pool["layers"]))
+
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with engine.eager():
+        sruns = mesh.run(sched_rank)
+    counts = {k.__name__: k.launches for k in kernels}
+    waits = list(mesh.group.barrier_seconds)
+    want = ref["sched_ref"]
+    for r, (res, tables, wall, fwd, launches, shape, pool_bytes) in \
+            enumerate(sruns):
+        parted = [i for i, (x, (w, f)) in enumerate(zip(res, want["results"]))
+                  if x.tokens != w or x.finish_reason != f]
+        check(len(res) == len(want["results"]) and not parted,
+              f"deepseek tp scheduler rank {r}: requests {parted} differ "
+              f"from phase 11's eager run at {CUT_LAYERS} layers in tokens "
+              f"or finish reason")
+        check(len(tables) == len(want["tables"]) and all(
+            (a == b).all() for a, b in zip(tables, want["tables"])),
+            f"deepseek tp scheduler rank {r}: page tables differ")
+        n_fwd = sum(fwd.values())
+        check(launches.get("bitplane_matmul", 0) == CUT_LAYERS * len(PROJ)
+              * n_fwd and launches.get("paged_attention", 0)
+              == CUT_LAYERS * fwd["decode"],
+              f"deepseek tp scheduler rank {r}: launches {launches}, "
+              f"forwards {fwd}")
+        check(shape[-2] == cfg.n_kv_heads // m, f"pool heads {shape}")
+    res, tables, wall, fwd, launches, shape, pool_bytes = sruns[0]
+    n_tok = sum(len(x.tokens) for x in res)
+    out["scheduler"] = {"wall_s": wall, "tok_s": n_tok / wall,
+                        "forwards": fwd, "launches": counts,
+                        "rank_launches": [s[4] for s in sruns],
+                        "wait_s": waits, "pool_shape": list(shape),
+                        "pool_bytes_per_rank": pool_bytes,
+                        "peak_bytes": torch.cuda.max_memory_allocated(),
+                        "ticks": len(tables), "requests": len(res)}
+    print(f"  scheduler on {m} ranks, eager, {CUT_LAYERS} layers, phase 11's "
+          f"trace ({len(res)} requests): tokens, finish reasons and all "
+          f"{len(tables)} ticks' page tables equal to phase 11's eager run "
+          f"on every rank; {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tok/s; "
+          f"forwards {fwd}; launches {counts}, a rank "
+          f"{launches} (K3 {launches.get('paged_attention', 0) / max(fwd['decode'], 1):.0f} "
+          f"and K2 {launches.get('bitplane_matmul', 0) / max(n_fwd, 1):.0f} "
+          f"a forward); a rank's pool {list(shape)} "
+          f"({pool_bytes / 1e6:.2f} MB K+V); waits "
+          f"{[round(w, 3) for w in waits]} s ({card})")
+    del sruns, cuts, shards
+    gc_cuda(torch)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def nccl_one_shot(torch, ref) -> dict:
+    """The packed one-shot again as one NCCL process per card, with CUDA
+    graphs (``launch/serve.py --nccl``), where two or more cards are
+    visible; its sample tokens equal to phase 11's."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"  NCCL: {n} card visible; the one-shot as one NCCL process "
+              f"per card with CUDA graphs needs two or more and did not run "
+              f"(this is not a pass)")
+        return {"ran": False, "cards": n}
+    m = 4 if n >= 4 else 2
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
+               CUDA_VISIBLE_DEVICES=",".join(str(i) for i in range(m)))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "deepseek-moe-16b", "--quant", "--pack", "--batch", str(BATCH),
+           "--prompt-len", str(PROMPT), "--new-tokens", str(NEW), "--mesh",
+           f"1x{m}", "--nccl"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=900)
+    dt = time.perf_counter() - t0
+    check(proc.returncode == 0, f"NCCL one-shot failed: {proc.stderr[-2000:]}")
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("sample tokens:")]
+    want = ref["one_shot_ref"]["packed+stats"]["toks"][0, :8].tolist()
+    check(len(line) == 1 and json.loads(line[0].split(":", 1)[1]) == want,
+          f"NCCL one-shot sample tokens {line} != phase 11's {want}")
+    for ln in proc.stdout.splitlines():
+        print(f"    | {ln}")
+    print(f"  NCCL: {m} processes, one a card, CUDA graphs: sample tokens "
+          f"equal phase 11's ({dt:.1f} s with start-up)")
+    return {"ran": True, "cards": n, "ranks": m, "s": dt}
+
+
+def phase16(torch, dev, card, l2_ops, bm_ops, pa_ops, k3, k4, m11) -> dict:
+    t_phase = time.perf_counter()
+    kernels = (l2_ops.log2quant, bm_ops.bitplane_matmul,
+               pa_ops.paged_attention, pa_ops.paged_attention_quant)
+    out = {"split_kv": split_kv_over_ranks(torch, dev, pa_ops, k3["tick"],
+                                           k4["tick"])}
+    out.update(deepseek_tp(torch, dev, card, kernels, bm_ops, m11))
+    out["nccl"] = nccl_one_shot(torch, m11)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  (phase 16 took {out['phase_s']:.0f} s)")
+    return out
+
 
 if __name__ == "__main__":
     main()

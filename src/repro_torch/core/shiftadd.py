@@ -178,7 +178,8 @@ def quantized_linear_init(w: torch.Tensor, bias: Optional[torch.Tensor] = None,
 
 def quantized_linear_apply(p: QuantizedLinearParams, x: torch.Tensor,
                            n_bits: int = 4,
-                           ctx: Optional[QuantCtx] = None) -> torch.Tensor:
+                           ctx: Optional[QuantCtx] = None,
+                           reduce: bool = False) -> torch.Tensor:
     """x (..., K) -> y (..., N) through the full QeiHaN path.
 
     One kernel call (``kernels.bitplane_matmul.log2_bitplane_matmul``)
@@ -186,9 +187,20 @@ def quantized_linear_apply(p: QuantizedLinearParams, x: torch.Tensor,
     as stored, packed along K or not; on CPU tensors it runs its plain
     version.  The epilogue keeps the reference's float order:
     ``(y_int * w_scale) * act_scale``, then ``+ bias``.
+
+    On a model axis (``models.sharding``) the planes may be a rank's
+    shard.  Column-parallel planes hold the rank's run of the N output
+    columns; the replicated per-channel ``w_scale`` is sliced to it.
+    Row-parallel planes (``reduce=True``) hold the rank's run of K, ``x``
+    its matching slice: the int32 partial is summed over the ranks before
+    the float epilogue, so the result is the one-rank product exactly.
+    The traffic counts scale by the local N; a projection every rank
+    computes whole (replicated) is counted on rank 0 only, so that the
+    ranks' counts sum to the one-rank counts.
     """
     from repro_torch.kernels.bitplane_matmul.ops import (
         log2_bitplane_matmul, plane_traffic_counts)
+    from repro_torch.models import sharding as sh
 
     lead = x.shape[:-1]
     k = x.shape[-1]
@@ -198,9 +210,17 @@ def quantized_linear_apply(p: QuantizedLinearParams, x: torch.Tensor,
     out = log2_bitplane_matmul(x2, p.act_scale, p.planes, n_bits=n_bits,
                                codes=want_codes)
     y_int, q = out if want_codes else (out, None)
+    n_local = p.planes.shape[-1]
+    w_scale = p.w_scale
+    if sh.cut_of(w_scale.shape[-1], n_local, "projection columns") > 1:
+        w_scale = w_scale[..., sh.rank_slice(n_local)]
     if ctx is not None and ctx.collect is not None:
         from repro_torch.core.access_model import needed_bits
-        n_scale = float(p.planes.shape[-1])
+        n_scale = float(n_local)
+        replicated = (not reduce and w_scale is p.w_scale
+                      and sh.model_size() > 1)
+        if replicated and sh.model_rank() != 0:
+            n_scale = 0.0
         tile_f, tile_t = plane_traffic_counts(q.exp, n_bits=n_bits)
         nb = needed_bits(q.exp, n_bits=n_bits)
         alive = (q.exp != zero_sentinel(n_bits)).float()
@@ -213,7 +233,9 @@ def quantized_linear_apply(p: QuantizedLinearParams, x: torch.Tensor,
             planes = bp.unpack_planes(planes, axis=0)
         ctx.capture.append((x2.float() / p.act_scale, q.exp, q.sign, planes,
                             y_int))
-    y = y_int.float() * p.w_scale * p.act_scale
+    if reduce:
+        y_int = sh.all_reduce(y_int)
+    y = y_int.float() * w_scale * p.act_scale
     y = y.reshape(*lead, -1)
     if p.bias is not None:
         y = y + p.bias

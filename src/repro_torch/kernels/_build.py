@@ -32,6 +32,28 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
+_thread = threading.local()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (a kernel wrapper's launch count),
+    under a lock: the ranks of a local group launch from several threads.
+    The launching thread's own count (:func:`thread_launches`) goes up
+    too."""
+    with _count_lock:
+        wrapper.launches += 1
+    counts = getattr(_thread, "counts", None)
+    if counts is None:
+        counts = _thread.counts = {}
+    name = wrapper.__name__
+    counts[name] = counts.get(name, 0) + 1
+
+
+def thread_launches() -> Dict[str, int]:
+    """Kernel launches made from this thread, by wrapper name: a rank's
+    own launches when each rank is a thread."""
+    return dict(getattr(_thread, "counts", None) or {})
 
 
 def sources() -> List[Path]:

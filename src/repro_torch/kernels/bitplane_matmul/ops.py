@@ -129,7 +129,7 @@ def _launch(m: int, k: int, n: int, planes: torch.Tensor, packed: bool,
             raise RuntimeError(
                 "bitplane_matmul launch failed: "
                 + lib.qh_bitplane_matmul_error_string(rc).decode())
-        bitplane_matmul.launches += 1
+        _build.count_launch(bitplane_matmul)
     elif codes and m:
         raise ValueError("codes need at least one output column")
     return out, q

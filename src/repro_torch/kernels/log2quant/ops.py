@@ -109,7 +109,7 @@ def log2quant_many(xs: Sequence[torch.Tensor], n_bits: int = 4
         if rc != 0:
             raise RuntimeError("log2quant launch failed: "
                                + lib.qh_log2quant_error_string(rc).decode())
-        log2quant.launches += 1
+        _build.count_launch(log2quant)
     return LogQuantized(exp, sign), views
 
 

@@ -190,7 +190,7 @@ def paged_attention(qg: torch.Tensor, k_pool: torch.Tensor,
             raise RuntimeError(
                 "paged_attention launch failed: "
                 + lib.qh_paged_attention_error_string(rc).decode())
-        paged_attention.launches += 1
+        _build.count_launch(paged_attention)
     return o, m, l
 
 
@@ -273,7 +273,7 @@ def paged_attention_quant(qg: torch.Tensor, k_codes: torch.Tensor,
             raise RuntimeError(
                 "paged_attention_quant launch failed: "
                 + lib.qh_paged_attention_quant_error_string(rc).decode())
-        paged_attention_quant.launches += 1
+        _build.count_launch(paged_attention_quant)
     return o, m, l
 
 
@@ -298,14 +298,51 @@ def merge_split_softmax(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
     return num / torch.clamp(l_tot, min=1e-30).unsqueeze(-1)
 
 
+def rank_runs(page_table: torch.Tensor, lengths: torch.Tensor,
+              page_len: int, splits: int):
+    """This rank's share of a split-KV walk spread over the model axis
+    (``models.sharding``; the reference's ``kvsplit`` rule): with M ranks
+    dividing ``splits``, rank r walks splits ``[r*S/M, (r+1)*S/M)``, i.e.
+    its run of ``NB/M`` table columns, with lengths shifted by the run's
+    first position (clamped at 0).  A kernel derives every position from
+    its column and the length, so each split's partials are the bits the
+    one-rank call computes.  Returns ``(table, lengths, splits)`` for the
+    rank, or None (no model axis, or M does not divide ``splits``)."""
+    from repro_torch.models import sharding as sh
+
+    m = sh.model_size()
+    if m == 1 or splits % m:
+        return None
+    cols = page_table.shape[1] // m
+    run = sh.rank_slice(cols)
+    lens = torch.clamp(lengths - run.start * page_len, min=0)
+    return (page_table[:, run].contiguous(), lens.to(torch.int32),
+            splits // m)
+
+
+def gather_runs(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor):
+    """The ranks' ``(o, m, l)`` partials concatenated along the split axis
+    (dim 2) in rank order, in one collective: the one-rank partials."""
+    from repro_torch.models import sharding as sh
+
+    d = o.shape[-1]
+    packed = torch.cat([o, m[..., None], l[..., None]], dim=-1)
+    packed = sh.all_gather(packed, 2)
+    return packed[..., :d], packed[..., d], packed[..., d + 1]
+
+
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, page_table: torch.Tensor,
                            lengths: torch.Tensor, *,
-                           splits: int = 1) -> torch.Tensor:
+                           splits: int = 1,
+                           spread: bool = False) -> torch.Tensor:
     """Decode attention straight off the page pool, no dense gather.
 
     q (B, 1, H, D); k/v pool (P, page_len, G, D); page_table (B, NB) int32
     (entry 0 = trash page); lengths (B,) int32 valid tokens per row.
+    ``spread=True`` on a model axis whose size divides ``splits`` walks
+    only this rank's split runs and gathers the ranks' partials before
+    the merge (:func:`rank_runs`): the result is the one-rank call's.
     Returns (B, 1, H, D) in q's dtype."""
     b, _, h, d = q.shape
     g = k_pool.shape[2]
@@ -316,8 +353,14 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         # trash-page columns sit past any valid length: never loaded
         table = F.pad(table, (0, pad))
     qg = q.reshape(b, g, h // g, d).contiguous()
-    o, m, l = paged_attention(qg, k_pool, v_pool, table.contiguous(),
-                              lengths.to(torch.int32).contiguous(), splits)
+    lengths = lengths.to(torch.int32).contiguous()
+    runs = rank_runs(table, lengths, k_pool.shape[1], splits) \
+        if spread else None
+    if runs is None:
+        o, m, l = paged_attention(qg, k_pool, v_pool, table.contiguous(),
+                                  lengths, splits)
+    else:
+        o, m, l = gather_runs(*paged_attention(qg, k_pool, v_pool, *runs))
     out = merge_split_softmax(m, l, o, axis=2)           # (B, G, R, D)
     return out.reshape(b, 1, h, d).to(q.dtype)
 
@@ -341,7 +384,9 @@ def paged_decode_attention_quant(q: torch.Tensor, k_codes: torch.Tensor,
                                  v_tail: torch.Tensor,
                                  page_table: torch.Tensor,
                                  lengths: torch.Tensor, *, n_bits: int = 4,
-                                 splits: int = 1) -> torch.Tensor:
+                                 splits: int = 1,
+                                 spread: bool = False,
+                                 cut: int = 1) -> torch.Tensor:
     """Decode attention off the log2-quantized page pool.
 
     q (B, 1, H, D); code pools (P, page_len, G, D); scale pools (P, G)
@@ -351,7 +396,13 @@ def paged_decode_attention_quant(q: torch.Tensor, k_codes: torch.Tensor,
     codes are still being rewritten); the newest page is one more split,
     computed here from the tail ring in f32 with ``p`` cast to the ring's
     dtype before PV, as the dense pool would be read, and merged with the
-    kernel's partials.  Returns (B, 1, H, D) in q's dtype."""
+    kernel's partials.  ``spread`` spreads the kernel's splits over the
+    ranks as :func:`paged_decode_attention` does; every rank computes the
+    tail split.  ``cut > 1``: this rank holds 1/``cut`` of the heads, and
+    the tail split and the merge run at one card's head count (the rank's
+    heads in their own slots, zeros elsewhere), so that their batched
+    products round as one card's do.  Returns (B, 1, H, D) in q's
+    dtype."""
     b, _, h, d = q.shape
     page_len, g = k_codes.shape[1], k_codes.shape[2]
     nb = page_table.shape[1]
@@ -363,9 +414,28 @@ def paged_decode_attention_quant(q: torch.Tensor, k_codes: torch.Tensor,
     kt, tb = tail_rows(k_tail, lengths, page_len)        # (B, pl, G, D)
     vt, _ = tail_rows(v_tail, lengths, page_len)
     kern_lens = (tb * page_len).to(torch.int32)          # full pages only
-    o, m, l = paged_attention_quant(qg, k_codes, k_scale, v_codes, v_scale,
-                                    table.contiguous(), kern_lens, n_bits,
-                                    splits)
+    runs = rank_runs(table, kern_lens, page_len, splits) if spread else None
+    if runs is None:
+        o, m, l = paged_attention_quant(qg, k_codes, k_scale, v_codes,
+                                        v_scale, table.contiguous(),
+                                        kern_lens, n_bits, splits)
+    else:
+        tab, lens, sp = runs
+        o, m, l = gather_runs(*paged_attention_quant(
+            qg, k_codes, k_scale, v_codes, v_scale, tab, lens, n_bits, sp))
+    if cut > 1:
+        from repro_torch.models import sharding as sh
+
+        run = sh.rank_slice(g)
+
+        def widen(t, dim):
+            shape = list(t.shape)
+            shape[dim] *= cut
+            full = t.new_zeros(shape)
+            full.narrow(dim, run.start, g).copy_(t)
+            return full
+        qg, o, m, l = (widen(t, 1) for t in (qg, o, m, l))
+        kt, vt = widen(kt, 2), widen(vt, 2)
     pos = tb[:, None] * page_len + torch.arange(page_len, device=q.device)
     s_t = torch.einsum("bgrd,bkgd->bgrk", qg.float(), kt.float()) \
         / math.sqrt(d)
@@ -379,6 +449,8 @@ def paged_decode_attention_quant(q: torch.Tensor, k_codes: torch.Tensor,
     m = torch.cat([m, m_t[..., 0][:, :, None]], dim=2)
     l = torch.cat([l, p.sum(dim=-1)[:, :, None]], dim=2)
     out = merge_split_softmax(m, l, o, axis=2)           # (B, G, R, D)
+    if cut > 1:
+        out = out[:, run]
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 

@@ -1,5 +1,4 @@
-"""Serving CLI (port of ``src/repro/launch/serve.py`` without its mesh
-options).
+"""Serving CLI (port of ``src/repro/launch/serve.py``).
 
 One-shot mode: random weights from ``--seed``, a random prompt batch,
 prefill, then the decode loop; prints the prefill time, decode tok/s, the
@@ -45,12 +44,31 @@ CUDA-graph replay (its first call captures it: the one-shot mode times a
 second, replayed generate after the capture); ``--device cpu`` runs the
 same program bodies eagerly with the kernels' plain versions on the host.
 Continuous mode prints the scheduler's ``compile_stats()``.
+
+``--mesh DxM`` (or ``host`` with ``--model-parallel M``) serves either mode
+as ``M`` ranks on the model axis (``launch/shardings.py``: heads, MLP
+columns, vocab and experts cut over the ranks, the bit-planes with their
+weights), with the single card's tokens; a data axis (``D > 1``) is
+refused.  The ranks are ``--host-devices N`` threads on ``--device`` (the
+reference's flag; on the card they run eagerly, as a graph cannot hold
+their hand-overs on the host), or, with ``--nccl``, one process per visible card
+over NCCL, whose programs are CUDA graphs.  Only rank 0 prints::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \
+        --continuous --paged --mesh 1x4 --host-devices 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \
+        --quant --pack --mesh 1x4 --nccl
+
+``--disaggregate`` with a mesh is refused: the router is not sharded.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
+import socket
+import sys
 import time
 
 import numpy as np
@@ -58,10 +76,26 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke
+from repro_torch.launch.mesh import DATA_AXIS_REASON, make_serve_mesh
+from repro_torch.launch.shardings import cut_shards, params_shardings
+from repro_torch.models import sharding
 from repro_torch.models.model import base_kind, init_caches, init_params
 from repro_torch.models.quantize import quantize_model_params
+from repro_torch.serving import engine
 from repro_torch.serving.engine import (Program, greedy_generate,
                                         make_decode_loop, make_prefill_step)
+
+
+def _print(*args, **kw) -> None:
+    """``print`` on rank 0 only (every process outside a mesh)."""
+    if sharding.model_rank() == 0:
+        print(*args, **kw)
+
+
+def _mesh_tag(mesh) -> str:
+    return ("1-device" if mesh is None else
+            f"{mesh.shape['data']}x{mesh.shape['model']} mesh, "
+            f"{mesh.kind} group")
 
 
 def _sync(dev: torch.device) -> None:
@@ -118,7 +152,7 @@ def _load_serve_config(args):
         return ServeConfig.from_json(fh.read())
 
 
-def _serve_continuous(cfg, params, args, dev):
+def _serve_continuous(cfg, params, args, dev, mesh=None):
     """Submit a seeded trace, drain it, report tok/s, latency, plane
     traffic and prefix-cache hits.  With chunking the trace draws prompts
     up to 3x ``--prompt-len``; with the prefix cache 3 in 4 prompts start
@@ -137,7 +171,7 @@ def _serve_continuous(cfg, params, args, dev):
                              "(add --paged, or paged=true in --config)")
         sched = Router(cfg, params, config, device=dev)
     else:
-        sched = ServeScheduler(cfg, params, config, device=dev)
+        sched = ServeScheduler(cfg, params, config, device=dev, mesh=mesh)
     rng = np.random.default_rng(args.seed)
     prefix = (rng.integers(0, cfg.vocab_size, size=max(args.prompt_len // 2,
                                                        config.page_len))
@@ -170,21 +204,24 @@ def _serve_continuous(cfg, params, args, dev):
         mode = "continuous batching"
         compile_stats = sched.compile_stats()
         stats_sched = sched
-    print(f"[serve] {cfg.name} on {dev}: {mode}{tag} — "
+    if mesh is not None:
+        mode = f"{mode} ({_mesh_tag(mesh)}{tag})"
+        tag = ""
+    _print(f"[serve] {cfg.name} on {dev}: {mode}{tag} — "
           f"{len(results)} requests, {config.max_slots} slots, "
           f"tick={config.tick_steps}: {total} tokens in {dt:.3f}s "
           f"({total / max(dt, 1e-9):.1f} tok/s, {_path(dev)})")
-    print(f"[serve] compile_stats: {compile_stats}")
+    _print(f"[serve] compile_stats: {compile_stats}")
     if args.disaggregate and sched.decode_tick_times:
         tt = np.asarray(sched.decode_tick_times) * 1e3
-        print(f"[serve] decode fleet: {len(tt)} isolated ticks, p50/p95 "
+        _print(f"[serve] decode fleet: {len(tt)} isolated ticks, p50/p95 "
               f"{np.percentile(tt, 50):.1f}/{np.percentile(tt, 95):.1f} ms "
               f"(prefill work excluded by construction)")
     served = [r for r in results if r.finish_reason != "rejected"]
     if served:
         ttft = [r.first_token_time - r.submit_time for r in served]
         e2e = [r.finish_time - r.submit_time for r in served]
-        print(f"[serve] latency: ttft p50/p95 "
+        _print(f"[serve] latency: ttft p50/p95 "
               f"{np.percentile(ttft, 50) * 1e3:.1f}/"
               f"{np.percentile(ttft, 95) * 1e3:.1f} ms, e2e p50/p95 "
               f"{np.percentile(e2e, 50) * 1e3:.1f}/"
@@ -195,11 +232,11 @@ def _serve_continuous(cfg, params, args, dev):
     if args.quant and served:
         tile = float(np.mean([r.plane_traffic_fraction for r in served]))
         elem = float(np.mean([r.element_traffic_fraction for r in served]))
-        print(f"[serve] per-request plane_traffic_fraction: {tile:.3f} "
+        _print(f"[serve] per-request plane_traffic_fraction: {tile:.3f} "
               f"tile-granular, {elem:.3f} element-granular")
     if config.prefix_cache:
         st = stats_sched.prefix_cache_stats()
-        print(f"[serve] prefix cache: hit_rate {st['hit_rate']:.3f} "
+        _print(f"[serve] prefix cache: hit_rate {st['hit_rate']:.3f} "
               f"({int(st['cached_tokens'])}/{int(st['prompt_tokens'])} "
               f"prompt tokens from shared pages, "
               f"{int(st['lookup_hits'])}/{int(st['lookups'])} lookups hit; "
@@ -207,7 +244,7 @@ def _serve_continuous(cfg, params, args, dev):
               f"{int(st['pages_free'])} free)")
     if results:
         r0 = results[0]
-        print(f"sample request 0 ({r0.finish_reason}):", r0.tokens[:8])
+        _print(f"sample request 0 ({r0.finish_reason}):", r0.tokens[:8])
     return results
 
 
@@ -311,6 +348,19 @@ def main(argv=None):
                          "instead of the combined scheduler: the same "
                          "tokens, decode ticks apart from prompt ingestion "
                          "(needs a paged config)")
+    ap.add_argument("--mesh", default=None,
+                    help="serve on a mesh: 'host' (every rank, "
+                         "--model-parallel of them on the model axis) or "
+                         "'DxM'; the port shards the model axis only "
+                         "(D must be 1).  Default: one device, no group")
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--host-devices", type=int, default=None, metavar="N",
+                    help="N ranks as threads of this process on --device "
+                         "(the local group)")
+    ap.add_argument("--nccl", action="store_true",
+                    help="one process per rank of --mesh, each on its own "
+                         "card, ranks of one NCCL group, each serving its "
+                         "shard as CUDA graphs")
     args = ap.parse_args(argv)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.kv_quant is not None and not any(base_kind(k) == "attn"
@@ -330,25 +380,73 @@ def main(argv=None):
 
     if cfg.frontend == "audio_stub":
         raise SystemExit("use examples/serve_decode.py for the audio stub")
+    if args.nccl:
+        return _spawn_nccl(args, argv if argv is not None else sys.argv[1:])
+    if args.mesh is not None and args.disaggregate:
+        raise SystemExit("--disaggregate with --mesh: the prefill/decode "
+                         "router is not sharded")
     dev = resolve_device(args.device)
+    mesh = None
+    if args.mesh is not None:
+        group = (None if args.host_devices is None
+                 else sharding.LocalGroup(args.host_devices))
+        mesh = make_serve_mesh(args.mesh, args.model_parallel, group=group,
+                               device=dev)
+        if mesh.size == 1:
+            mesh = None
+    return _serve_mesh(cfg, args, dev, mesh)
+
+
+def _serve_mesh(cfg, args, dev, mesh):
+    """Build the seeded model and prompt, cut each rank's shard and free
+    the full tree, then serve on every rank this process runs."""
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(cfg, generator=gen, device=dev)
     if args.quant:
         params = quantize_model_params(cfg, params, pack=args.pack)
-    if args.continuous:
-        return _serve_continuous(cfg, params, args, dev)
-    prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                           generator=gen, device=dev, dtype=torch.int32)
+    draw = {}
+    if not args.continuous:
+        draw["prompt"] = torch.randint(
+            0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen,
+            device=dev, dtype=torch.int32)
+        if cfg.frontend == "vision_stub":
+            draw["img"] = torch.randn(
+                (args.batch, cfg.n_image_tokens, cfg.d_model), generator=gen,
+                device=dev).to(torch.bfloat16)
+    if mesh is None:
+        return _serve(cfg, params, args, dev, None, **draw)
+    if mesh.shape["data"] > 1:
+        raise NotImplementedError(f"--mesh {args.mesh}: {DATA_AXIS_REASON}")
+    specs = params_shardings(mesh, params, fsdp=False,
+                             kv_heads=cfg.n_kv_heads)
+    ranks = range(mesh.size) if mesh.kind == "local" else [mesh.group.rank]
+    # leaf by leaf, the full tree freed as its shards appear
+    shards = dict(zip(ranks, cut_shards(params, specs, mesh, ranks,
+                                        consume=True)))
+    del params, specs
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # the ranks of a local group take turns on the host: no CUDA graphs
+    scope = (engine.eager() if mesh.kind == "local" and dev.type == "cuda"
+             else contextlib.nullcontext())
+    with scope:
+        out = mesh.run(lambda r: _serve(cfg, shards.pop(r), args, dev, mesh,
+                                        **draw))
+    return out[0]
 
+
+def _serve(cfg, params, args, dev, mesh, prompt=None, img=None):
+    """One-shot or continuous serving of one rank (or of the one card)."""
+    if args.continuous:
+        return _serve_continuous(cfg, params, args, dev, mesh)
     if cfg.frontend == "vision_stub":
-        img = torch.randn((args.batch, cfg.n_image_tokens, cfg.d_model),
-                          generator=gen, device=dev).to(torch.bfloat16)
         generate = _vision_generate(cfg, params, prompt, img, args, dev)
     else:
         def generate():
             out = greedy_generate(cfg, params, prompt, args.new_tokens,
                                   quant=args.quant, eos_id=args.eos_id,
-                                  with_stats=args.quant, device=dev)
+                                  with_stats=args.quant, device=dev,
+                                  mesh=mesh)
             return out if args.quant else (out, None)
 
     _sync(dev)
@@ -376,20 +474,77 @@ def main(argv=None):
     shape = (f" + {cfg.n_image_tokens} image rows, then decode, as two "
              f"programs" if cfg.frontend == "vision_stub"
              else " + decode as one program")
-    print(f"[serve] {cfg.name} on {dev}: prefill {args.batch}x"
-          f"{args.prompt_len}{shape}, first call "
-          f"{t_first:.3f}s; {total_new} tokens in {t_decode:.3f}s "
-          f"({total_new / max(t_decode, 1e-9):.1f} tok/s, {_path(dev)}, "
-          f"prefill included)")
+    if mesh is not None:
+        shape += f" ({_mesh_tag(mesh)})"
+    path = ("eager, ranks as threads" if mesh is not None
+            and mesh.kind == "local" and dev.type == "cuda" else _path(dev))
+    _print(f"[serve] {cfg.name} on {dev}: prefill {args.batch}x"
+           f"{args.prompt_len}{shape}, first call "
+           f"{t_first:.3f}s; {total_new} tokens in {t_decode:.3f}s "
+           f"({total_new / max(t_decode, 1e-9):.1f} tok/s, {path}, "
+           f"prefill included)")
     if args.quant and steps:
         tile_all = stats["plane_traffic_fraction"][:steps].cpu()
         elem_all = stats["element_traffic_fraction"][:steps].cpu()
         ran = tile_all > 0
         tile = float(tile_all[ran].mean()) if ran.any() else 0.0
         elem = float(elem_all[ran].mean()) if ran.any() else 0.0
-        print(f"[serve] plane_traffic_fraction: {tile:.3f} tile-granular "
-              f"(kernel reads), {elem:.3f} element-granular (ASIC model)")
-    print("sample tokens:", toks_h[0, :8].tolist())
+        _print(f"[serve] plane_traffic_fraction: {tile:.3f} tile-granular "
+               f"(kernel reads), {elem:.3f} element-granular (ASIC model)")
+    _print("sample tokens:", toks_h[0, :8].tolist())
+    return toks_h
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _nccl_rank(rank: int, world: int, port: int, argv) -> None:
+    """One process of ``--nccl``: card ``rank``, the world's NCCL group,
+    the CLI's serving on this rank's shard."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        args = [a for a in argv if a != "--nccl"]
+        main(args + ["--device", f"cuda:{rank}"])
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_nccl(args, argv) -> None:
+    """``--nccl``: one process per rank of the mesh, each on its own card
+    and a rank of one NCCL group (``models.sharding.DistGroup``):
+    ``D*M`` processes for ``--mesh DxM``, one per visible card for
+    ``--mesh host``."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.mesh import spec_shape
+
+    if args.host_devices is not None:
+        raise SystemExit("--nccl with --host-devices: choose one group")
+    visible = torch.cuda.device_count()
+    if args.mesh == "host":
+        world = visible
+    else:
+        shape = spec_shape(args.mesh)
+        if shape is None:
+            raise SystemExit(f"--nccl needs --mesh host or DxM, got "
+                             f"{args.mesh!r}")
+        world = shape[0] * shape[1]
+    if world < 2 or world > visible:
+        raise SystemExit(f"--nccl --mesh {args.mesh}: {world} ranks, one a "
+                         f"card, need two or more cards and at most the "
+                         f"{visible} visible")
+    mp.spawn(_nccl_rank, args=(world, _free_port(), argv), nprocs=world,
+             join=True)
 
 
 if __name__ == "__main__":

@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.core.logquant import (dequantize_page_codes,
                                       quantize_page_codes, scale_exponent)
+from repro_torch.models import sharding
 from repro_torch.models.layers import apply_rope, dense, rms_norm
 
 NEG_INF = -1e30
@@ -227,6 +228,32 @@ def _chunk_attention(q, k, v, q_positions, kv_positions, kv_valid_len):
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
+def _at_card_width(attend, cut: int, q, k, v, *args, **kw):
+    """``attend(q, k, v, ...)`` for a rank that holds 1/``cut`` of the
+    heads, computed at one card's head count: the rank's heads sit in
+    their own slots of zero-filled q, k and v of every head, so each
+    product is one card's batched GEMM of the same shape.  cuBLAS may
+    choose a batched GEMM's reduction order by its batch, and the heads
+    are that batch, so a rank that attended over its own heads alone
+    would round differently from one card; this way it keeps one card's
+    bits, at ``cut`` times the attention products (not the projections).
+    The paged kernels compute each head alone; K4's tail split, a product
+    beside it, is widened the same way
+    (``kernels.paged_attention.ops.paged_decode_attention_quant``)."""
+    if cut == 1:
+        return attend(q, k, v, *args, **kw)
+    r = sharding.model_rank()
+
+    def widen(t):
+        b, s, n, d = t.shape
+        full = t.new_zeros((b, s, n * cut, d))
+        full[:, :, r * n:(r + 1) * n] = t
+        return full
+    h = q.shape[2]
+    out = attend(widen(q), widen(k), widen(v), *args, **kw)
+    return out[:, :, r * h:(r + 1) * h]
+
+
 class KVCache(NamedTuple):
     k: torch.Tensor           # (B, S_max, G, D)
     v: torch.Tensor
@@ -419,11 +446,23 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg,
     ``QuantPagedKVCache`` they quantize on the way); an S = 1 read goes
     through a paged-attention kernel when ``cfg.paged_attn_kernel`` is not
     ``"off"``, else through the gathered view.
+
+    On a model axis (``models.sharding``) a rank may hold whole kv heads
+    and their q groups (``wq/wk/wv`` and their biases column-parallel,
+    ``wo`` row-parallel, the cache its local heads; the products outside
+    the paged kernels run at one card's head count, :func:`_at_card_width`),
+    or, when the kv heads
+    do not divide the ranks, every head: then the paged kernels spread
+    their split-KV runs over the ranks (``spread``, case B of
+    ``kernels.paged_attention.ops``).
     """
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = dense(p["wq"], x, p.get("bq"), p.get("wq_q") if quant else None,
               ctx=quant)
+    cut = sharding.cut_of(h * hd, q.shape[-1], "attention q heads")
+    h, hkv = h // cut, hkv // cut
+    spread = cut == 1 and sharding.model_size() > 1
     k = dense(p["wk"], x, p.get("bk"), p.get("wk_q") if quant else None,
               ctx=quant)
     v = dense(p["wv"], x, p.get("bv"), p.get("wv_q") if quant else None,
@@ -438,8 +477,8 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        out = flash_attention(q, k, v, positions, positions, causal=True,
-                              kv_chunk=cfg.kv_chunk)
+        out = _at_card_width(flash_attention, cut, q, k, v, positions,
+                             positions, causal=True, kv_chunk=cfg.kv_chunk)
         new_cache = None
     elif isinstance(cache, (PagedKVCache, QuantPagedKVCache)):
         ar = torch.arange(s, dtype=torch.int32, device=x.device)
@@ -470,7 +509,8 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg,
                 out = paged_decode_attention_quant(
                     q, cache.k_codes, cache.k_scale, cache.v_codes,
                     cache.v_scale, cache.k_tail, cache.v_tail, table,
-                    new_len, n_bits=n_bits, splits=splits)
+                    new_len, n_bits=n_bits, splits=splits, spread=spread,
+                    cut=cut)
             else:
                 kg = _quant_paged_gather(cache.k_codes, cache.k_scale,
                                          cache.k_tail, table, new_len,
@@ -487,7 +527,8 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg,
                 from repro_torch.kernels.paged_attention.ops import \
                     paged_decode_attention
                 out = paged_decode_attention(q, cache.k, cache.v, table,
-                                             new_len, splits=splits)
+                                             new_len, splits=splits,
+                                             spread=spread)
             else:
                 kg = _paged_gather(cache.k, table)
                 vg = _paged_gather(cache.v, table)
@@ -495,7 +536,8 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg,
             kv_pos = torch.arange(kg.shape[1], dtype=torch.int32,
                                   device=x.device).expand(b, -1)
             attend = _decode_attention if s == 1 else _chunk_attention
-            out = attend(q, kg, vg, positions, kv_pos, new_len)
+            out = _at_card_width(attend, cut, q, kg, vg, positions, kv_pos,
+                                 new_len)
         new_cache = cache._replace(length=new_len)
     elif chunk_valid is not None:
         # write only the real slab rows (pad rows write the cache's own
@@ -514,8 +556,8 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg,
         new_len = length + chunk_valid
         kv_pos = torch.arange(s_max, dtype=torch.int32,
                               device=x.device).expand(b, -1)
-        out = _chunk_attention(q, cache.k, cache.v, positions, kv_pos,
-                               new_len)
+        out = _at_card_width(_chunk_attention, cut, q, cache.k, cache.v,
+                             positions, kv_pos, new_len)
         new_cache = KVCache(k=cache.k, v=cache.v, length=new_len)
     else:
         s_max = cache.k.shape[1]
@@ -539,15 +581,16 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg,
         if s == 1:
             kv_pos = torch.arange(s_max, dtype=torch.int32,
                                   device=x.device).expand(b, -1)
-            out = flash_attention(q, cache.k, cache.v, positions, kv_pos,
-                                  causal=True, kv_chunk=cfg.kv_chunk,
-                                  kv_valid_len=valid)
+            out = _at_card_width(flash_attention, cut, q, cache.k, cache.v,
+                                 positions, kv_pos, causal=True,
+                                 kv_chunk=cfg.kv_chunk, kv_valid_len=valid)
         else:
-            out = flash_attention(q, k, v, positions, positions, causal=True,
-                                  kv_chunk=cfg.kv_chunk)
+            out = _at_card_width(flash_attention, cut, q, k, v, positions,
+                                 positions, causal=True,
+                                 kv_chunk=cfg.kv_chunk)
         new_cache = KVCache(k=cache.k, v=cache.v, length=new_len)
 
     out = out.reshape(b, s, h * hd)
     y = dense(p["wo"], out, quant=p.get("wo_q") if quant else None,
-              ctx=quant)
+              ctx=quant, reduce=cut > 1)
     return y, new_cache

@@ -29,6 +29,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.logquant import code_dtype
 from repro_torch.core.shiftadd import QuantizedLinearParams, as_quant_ctx
+from repro_torch.models import sharding
 from repro_torch.models.attention import (KVCache, PagedKVCache,
                                           QuantPagedKVCache, attention)
 from repro_torch.models.layers import dense, rms_norm, swiglu
@@ -265,14 +266,16 @@ def _ssm_leaves(cfg: ModelConfig, batch: int, dtype,
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                 device=None, per_slot: bool = False) -> Params:
     """Zero caches, one tree per pattern position: stacked K/V ``(R, B,
-    max_len, G, D)`` for ``attn``, the recurrent state for ``mamba``.
+    max_len, G, D)`` for ``attn``, the recurrent state for ``mamba`` (on a
+    model axis, of the rank's local heads: ``models.sharding``).
     ``length`` is the int 0, or with ``per_slot=True`` a ``(batch,)``
     int32 tensor, one valid length per row (the continuous-batching slot
     pool)."""
     _check_kinds(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.cache_dtype or cfg.dtype
-    shape = (cfg.repeats, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.repeats, batch, max_len, sharding.local_kv_heads(cfg),
+             cfg.head_dim)
     layers = tuple(
         {"k": torch.zeros(shape, dtype=dtype, device=dev),
          "v": torch.zeros(shape, dtype=dtype, device=dev)}
@@ -300,14 +303,16 @@ def init_paged_pool(cfg: ModelConfig, batch: int, max_len: int,
     exponents ``{k,v}_scale (R, n_pages, G)`` int32, and a dense per-slot
     tail ring ``{k,v}_tail (R, batch, 2*page_len + 1, G, D)`` in the cache
     dtype holding each slot's newest two pages (row ``2*page_len`` is the
-    junk bin)."""
+    junk bin).  On a model axis every head count is the rank's local one
+    (``models.sharding.local_kv_heads``, ``local_ssm_heads``), so a rank's
+    pool is its share of the bytes."""
     if max_len % page_len:
         raise ValueError(f"max_len={max_len} must be a multiple of "
                          f"page_len={page_len}")
     _check_kinds(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.cache_dtype or cfg.dtype
-    r, g, d = cfg.repeats, cfg.n_kv_heads, cfg.head_dim
+    r, g, d = cfg.repeats, sharding.local_kv_heads(cfg), cfg.head_dim
     layers = []
     for kind in cfg.pattern:
         if base_kind(kind) != "attn":
@@ -401,8 +406,22 @@ def _apply_block(cfg: ModelConfig, kind: str, p: Params, x, positions,
         if kind.endswith("_moe"):
             x = x + moe_apply(p["mlp"], h2, cfg, quant=quant)
         else:
-            x = x + swiglu(p["mlp"], h2, quant=quant)
+            x = x + swiglu(p["mlp"], h2, quant=quant, ff=cfg.d_ff)
     return x
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor,
+           vocab: int) -> torch.Tensor:
+    """``table[tokens]``; on a model axis ``table`` may be a rank's run of
+    the vocab rows: each rank looks up the tokens in its run (zeros
+    elsewhere) and the ranks' rows are summed, which is exact."""
+    n = table.shape[0]
+    if sharding.cut_of(vocab, n, "embedding rows") == 1:
+        return table[tokens]
+    loc = tokens.long() - sharding.model_rank() * n
+    mine = (loc >= 0) & (loc < n)
+    rows = table[torch.clamp(loc, 0, n - 1)]
+    return sharding.all_reduce(torch.where(mine[..., None], rows, 0))
 
 
 def forward(cfg: ModelConfig, params: Params, *,
@@ -457,6 +476,14 @@ def forward(cfg: ModelConfig, params: Params, *,
     ``plane_fetched``, ``plane_total``, ``plane_traffic_fraction`` (tile
     granular) and ``element_traffic_fraction`` (ASIC bank model); zeros on
     the float path.
+
+    On a model axis (``models.sharding``, inside ``launch.mesh.Mesh.run``)
+    ``params`` is the rank's shard (``launch.shardings.shard_params``):
+    the embedding is a masked lookup of the rank's vocab run summed over
+    the ranks, attention, MLPs and SSD blocks run on the rank's heads and
+    columns with row-parallel sums, MoE experts run expert-parallel, and
+    the head's logits are gathered along the vocab, so every rank returns
+    the whole logits and the ranks' traffic sums.
     """
     _check_kinds(cfg)
     if valid_len is not None and chunk_valid is not None:
@@ -469,9 +496,11 @@ def forward(cfg: ModelConfig, params: Params, *,
     if embeds is not None:                 # audio stub: frame embeddings
         x = embeds.to(cfg.dtype)
     else:
-        x = params["embed"][tokens]
+        x = _embed(params["embed"], tokens, cfg.vocab_size)
     if image_embeds is not None:           # vision stub: prepend patches
         img = dense(params["img_proj"], image_embeds.to(cfg.dtype))
+        if sharding.cut_of(cfg.d_model, img.shape[-1], "img_proj") > 1:
+            img = sharding.all_gather(img, -1)
         x = torch.cat([img, x], dim=1)
     b, s, _ = x.shape
     base = caches["length"] if caches is not None else 0
@@ -508,10 +537,15 @@ def forward(cfg: ModelConfig, params: Params, *,
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = torch.matmul(x, head.to(x.dtype))
+    if sharding.cut_of(cfg.vocab_size, logits.shape[-1], "lm head") > 1:
+        logits = sharding.all_gather(logits, -1)
     if not return_stats:
         return logits, new_caches
     tile_f, tile_t, el_f, el_t = (torch.stack([t[j] for t in traffic]).sum()
                                   for j in range(4))
+    if sharding.model_size() > 1:          # each rank counted its share
+        tile_f, tile_t, el_f, el_t = sharding.all_reduce(
+            torch.stack([tile_f, tile_t, el_f, el_t])).unbind(0)
     stats = {"plane_fetched": tile_f, "plane_total": tile_t,
              "plane_traffic_fraction": tile_f / torch.clamp(tile_t, min=1.0),
              "element_traffic_fraction": el_f / torch.clamp(el_t, min=1.0)}

@@ -11,8 +11,9 @@ recurrence unrolled.  n_groups = 1 (B/C shared across heads).
 Plain PyTorch: the reference computes SSD in ``jnp`` outside any Pallas
 kernel.  :func:`mamba2_block` is functional, like the reference's: it
 returns the new state; ``models.model`` writes it into the cache leaves in
-place (:func:`write_rows_`).  The sharding hints of the reference go away
-(one card), and its legacy fused ``in_proj`` layout is not ported.
+place (:func:`write_rows_`).  On a model axis (``models.sharding``) a rank
+holds its run of the SSD heads, where the reference's hints put them; the
+reference's legacy fused ``in_proj`` layout is not ported.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharding
 from repro_torch.models.layers import dense, rms_norm
 
 
@@ -113,10 +115,13 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
 def mamba2_init_state(batch: int, cfg, dtype=torch.float32,
                       device=None) -> SSMState:
-    """Zero SSM state (f32) and conv window (``dtype``) for ``batch`` rows."""
-    conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+    """Zero SSM state (f32) and conv window (``dtype``) for ``batch`` rows;
+    on a model axis, of the rank's local SSD heads (its conv window holds
+    its run of the inner channels, then the replicated B and C ones)."""
+    heads = sharding.local_ssm_heads(cfg)
+    conv_dim = heads * cfg.ssm_head_dim + 2 * cfg.ssm_state
     return SSMState(
-        ssm=torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim,
+        ssm=torch.zeros((batch, heads, cfg.ssm_head_dim,
                          cfg.ssm_state), dtype=torch.float32, device=device),
         conv=torch.zeros((batch, cfg.conv_width - 1, conv_dim), dtype=dtype,
                          device=device))
@@ -148,6 +153,25 @@ def write_rows_(dst: torch.Tensor, src: torch.Tensor,
                               src, dst))
 
 
+def _inner_run(y: torch.Tensor, width: int) -> torch.Tensor:
+    """This rank's run of ``width`` inner channels of a projection that
+    may have been computed whole."""
+    if sharding.cut_of(y.shape[-1], width, "SSD inner channels") == 1:
+        return y
+    return y[..., sharding.rank_slice(width)]
+
+
+def _split_rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
+                    width: int) -> torch.Tensor:
+    """``rms_norm`` over a dim of ``width`` cut over the model axis: each
+    rank's sum of squares, summed over the ranks in one step, then the
+    ``rsqrt`` of their mean."""
+    dt = x.dtype
+    xf = x.float()
+    var = sharding.all_reduce((xf * xf).sum(dim=-1, keepdim=True)) / width
+    return (xf * torch.rsqrt(var + eps)).to(dt) * w
+
+
 def mamba2_block(p, x: torch.Tensor, cfg,
                  state: Optional[SSMState] = None, quant=False,
                  valid_len: Optional[torch.Tensor] = None):
@@ -159,18 +183,32 @@ def mamba2_block(p, x: torch.Tensor, cfg,
     passes through them untouched, and the rolling conv window is taken
     per row at the real-token boundary (:func:`_window_at`).  A row with
     ``valid_len[b] == 0`` keeps its state and window bit-identical: the
-    chunked prefill's decode and free rows ride along that way."""
+    chunked prefill's decode and free rows ride along that way.
+
+    On a model axis a rank may hold a run of the heads: ``wz/wx``, the
+    x conv, ``dt_bias/a_log/d_skip`` and the gated norm's weight are its
+    run, ``wb/wc/wdt`` and the B/C convs are whole (``wdt``'s output is cut
+    to the run), ``out_proj`` and its planes are row-parallel, and the
+    gated norm sums its squares over every rank before the ``rsqrt``.
+    The reference's rules keep the ``wz``/``wx`` planes whole, so a
+    quantized rank computes their whole output and keeps its run."""
     bsz, s, _ = x.shape
     h, pdim, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    d_inner = h * pdim
     io = x.dtype
 
-    z = dense(p["wz"], x, quant=p.get("wz_q") if quant else None, ctx=quant)
-    xs_r = dense(p["wx"], x, quant=p.get("wx_q") if quant else None,
-                 ctx=quant)
+    cut = sharding.cut_of(h, p["dt_bias"].shape[-1], "SSD heads")
+    h_full, h = h, h // cut
+    d_inner = h * pdim
+    z = _inner_run(dense(p["wz"], x, quant=p.get("wz_q") if quant else None,
+                         ctx=quant), d_inner)
+    xs_r = _inner_run(dense(p["wx"], x,
+                            quant=p.get("wx_q") if quant else None,
+                            ctx=quant), d_inner)
     b = dense(p["wb"], x)
     c = dense(p["wc"], x)
     dt = dense(p["wdt"], x)
+    if cut > 1:
+        dt = dt[..., sharding.rank_slice(h)]
     dt = torch.logaddexp(dt.float() + p["dt_bias"],
                          torch.zeros((), device=x.device))   # softplus
     if valid_len is not None:
@@ -228,7 +266,12 @@ def mamba2_block(p, x: torch.Tensor, cfg,
     y = y + xs.float() * p["d_skip"][None, None, :, None]
     y = y.reshape(bsz, s, d_inner).to(io)
     z = z.to(io)
-    y = rms_norm(y * F.silu(z.float()).to(io), p["norm"], cfg.norm_eps)
+    y = y * F.silu(z.float()).to(io)
+    if cut > 1:
+        y = _split_rms_norm(y, p["norm"], cfg.norm_eps, h_full * pdim)
+    else:
+        y = rms_norm(y, p["norm"], cfg.norm_eps)
     out = dense(p["out_proj"], y,
-                quant=p.get("out_proj_q") if quant else None, ctx=quant)
+                quant=p.get("out_proj_q") if quant else None, ctx=quant,
+                reduce=cut > 1)
     return out, new_state

@@ -5,10 +5,10 @@ Same fields, canonicalization, validation messages and ``schema`` version
 as the reference, so a JSON written by either package loads in the other
 (``tests/test_torch_serve_config.py``).  Differences:
 
-* ``resolved_n_pages`` takes no mesh: the port serves one card, so the
-  default pool is not rounded to a data-axis size.
-* ``mesh_spec`` is kept in the schema, but the port's scheduler raises
-  ``NotImplementedError`` on anything other than ``None``.
+* ``mesh_spec`` resolves to the mesh of the rank's scope, or outside one
+  through the port's ``launch.mesh.make_serve_mesh``
+  (:meth:`ServeConfig.make_mesh`); the port serves on the model axis
+  only, so a mesh with a data axis is refused by the scheduler.
 * ``kv_quant=True`` with ``attn_kernel="pallas"`` reads the quantized
   pool through the hand-written CUDA kernel
   (``kernels/paged_attention/csrc/paged_attention_quant.cu``).
@@ -170,16 +170,44 @@ class ServeConfig:
             raise ValueError("max_blocks: not a paged config")
         return self.max_len // self.page_len
 
-    def resolved_n_pages(self) -> int:
+    def resolved_n_pages(self, mesh=None) -> int:
         """Concrete pool size: the explicit ``n_pages``, or the default —
         every slot fully resident, plus prefix-cache retention headroom
-        for one max-size prompt, plus the trash page."""
+        for one max-size prompt, plus the trash page — rounded up to the
+        mesh's data-axis size, as in the reference (an EXPLICIT
+        ``n_pages`` is the caller's to align)."""
         if not self.paged:
             return 0
         if self.n_pages is not None:
             return self.n_pages
-        return (self.max_slots * self.max_blocks + 1
-                + (self.max_blocks if self.prefix_cache else 0))
+        n = (self.max_slots * self.max_blocks + 1
+             + (self.max_blocks if self.prefix_cache else 0))
+        if mesh is not None:
+            nb = mesh.shape.get("data", 1)
+            n = -(-n // nb) * nb
+        return n
+
+    def make_mesh(self):
+        """Resolve ``mesh_spec`` to a mesh in THIS process (None spec ->
+        None).  Inside a rank's scope (``launch.mesh.Mesh.run``) it is the
+        scope's mesh, which must have the spec's shape; outside one it is
+        ``launch.mesh.make_serve_mesh(mesh_spec)`` over the visible ranks
+        (the ``torch.distributed`` world, else one device)."""
+        if self.mesh_spec is None:
+            return None
+        from repro_torch.launch.mesh import make_serve_mesh, spec_shape
+        from repro_torch.models import sharding
+
+        cur = sharding.current()
+        mesh = None if cur is None else cur["mesh"]
+        if mesh is None:
+            return make_serve_mesh(self.mesh_spec)
+        want = spec_shape(self.mesh_spec)
+        have = (mesh.shape["data"], mesh.shape["model"])
+        if want is not None and want != have:
+            raise ValueError(f"mesh_spec={self.mesh_spec!r} inside the scope "
+                             f"of a {have[0]}x{have[1]} mesh")
+        return mesh
 
     # -------------------------------------------------------------- JSON
     def to_json(self, *, indent: Optional[int] = None) -> str:

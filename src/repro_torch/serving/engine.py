@@ -1,7 +1,7 @@
 """Serving layer: prefill and single-token decode steps, the
 autoregressive generation loop, the slot-pool steps of continuous
 batching, and the program type that runs each of them as one CUDA graph
-(port of ``src/repro/serving/engine.py`` without its mesh plumbing).
+(port of ``src/repro/serving/engine.py``).
 
 Where the reference compiles a function into one XLA program with
 ``jax.jit``, the port captures it into a :class:`Program`: one
@@ -32,6 +32,20 @@ The slot-pool steps (:func:`make_slot_serve_step`, :func:`make_slot_prefill`,
 ``serving/scheduler.py``'s programs: they take per-slot ``(B,)`` lengths
 and, ``paged=True``, a page table.  ``quant`` may be the reference's
 backend names (``"pallas"``, ``"xla"``): both select the CUDA kernels.
+
+``mesh=`` (``launch.mesh.Mesh``, model axis only) runs a rank of a
+sharded model: the caller runs each rank inside ``mesh.run`` with the
+rank's shard of the params (``launch.shardings.shard_params``), the model
+code calls the collectives (``models.sharding``), and the program caches
+key on ``launch.mesh.mesh_fingerprint``.  What shards the call is that
+scope, which ``mesh.run`` binds; ``mesh=`` names the mesh the caller
+means, and a call outside its scope raises (``check_serving``), as a
+rank's widths must match it (``models.sharding.cut_of``).  Under a
+distributed group the programs are CUDA graphs with the collectives
+captured in them; under a
+local group (ranks as threads of one process, handing each other the
+turn on the host at every collective) a graph cannot hold the hand-over,
+so its programs run only under :func:`eager`.
 """
 
 from __future__ import annotations
@@ -40,6 +54,7 @@ import collections
 import contextlib
 import ctypes
 import gc
+import threading
 import time
 import warnings
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
@@ -49,6 +64,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.shiftadd import QuantCtx, as_quant_ctx
+from repro_torch.launch.mesh import check_serving, mesh_fingerprint
+from repro_torch.models import sharding
 from repro_torch.models.model import (ModelConfig, _leaves, forward,
                                       init_caches)
 
@@ -147,6 +164,11 @@ class Program:
     graph_pool_handle()``) shares one private memory pool among the
     graphs of programs that never run concurrently and whose outputs are
     read before another of them replays (a scheduler's programs).
+
+    Inside the scope of a local group of several ranks
+    (``models.sharding.LocalGroup``) a call on the card raises unless
+    under :func:`eager`: the ranks hand each other the turn on the host
+    at every collective, which a graph would not replay.
     """
 
     def __init__(self, body: Callable, *, name: str, device,
@@ -176,6 +198,12 @@ class Program:
         for buf, x in zip(e.inputs, xs):
             buf.copy_(x)
         e.calls += 1
+        if self.device.type == "cuda" and not _EAGER \
+                and sharding.local_group_bound():
+            raise RuntimeError(
+                f"program {self.name!r}: the ranks of a local group hand "
+                f"each other the turn on the host, which a CUDA graph "
+                f"cannot hold; run them under engine.eager()")
         if self.device.type != "cuda" or _EAGER:
             out = self.body(*e.inputs)
             if e.outputs is None:
@@ -310,10 +338,13 @@ def graph_nodes(entry: _Entry) -> Optional[Tuple[int, int]]:
 # steps and the one-shot loop
 # ---------------------------------------------------------------------------
 
-def make_prefill_step(cfg: ModelConfig, quant: QuantFlag = False):
+def make_prefill_step(cfg: ModelConfig, quant: QuantFlag = False,
+                      mesh=None):
     """(params, batch, caches) -> (last-token logits, caches).  ``batch``
     holds ``tokens``, or ``embeds`` (audio stub), and ``image_embeds``
-    with a vision stub."""
+    with a vision stub.  ``mesh``: run inside its scope (module
+    docstring)."""
+    check_serving(mesh)
     ctx = _quant_ctx(quant)
 
     def prefill_step(params, batch, caches):
@@ -326,10 +357,11 @@ def make_prefill_step(cfg: ModelConfig, quant: QuantFlag = False):
 
 
 def make_serve_step(cfg: ModelConfig, quant: QuantFlag = False,
-                    with_stats: bool = False):
+                    with_stats: bool = False, mesh=None):
     """(params, caches, token (B, 1)) -> (logits, caches[, stats]): one new
     token against a pre-filled cache.  An audio-stub model decodes from a
     frame embedding (B, 1, d) in place of the token id."""
+    check_serving(mesh)
     ctx = _quant_ctx(quant)
     key = "embeds" if cfg.frontend == "audio_stub" else "tokens"
 
@@ -359,7 +391,8 @@ def _sample(logits: torch.Tensor, temperature: float,
 
 def make_decode_loop(cfg: ModelConfig, max_new: int, *,
                      temperature: float = 0.0, quant: QuantFlag = False,
-                     eos_id: Optional[int] = None, with_stats: bool = False):
+                     eos_id: Optional[int] = None, with_stats: bool = False,
+                     mesh=None):
     """Build ``decode(params, caches, logits, generator) -> (tokens,
     stats)``, the body of the one-shot program: no host synchronisation.
 
@@ -372,7 +405,7 @@ def make_decode_loop(cfg: ModelConfig, max_new: int, *,
     ``eos_id`` are ``eos_id``, and a forward taken once every row is done
     reports 0, as the reference's early-exit loop does.
     """
-    step = make_serve_step(cfg, quant, with_stats=with_stats)
+    step = make_serve_step(cfg, quant, with_stats=with_stats, mesh=mesh)
 
     def decode(params, caches, logits, generator=None):
         b = logits.shape[0]
@@ -478,19 +511,25 @@ class _GenerateFnCache:
         self._data: "collections.OrderedDict[tuple, _Generate]" = \
             collections.OrderedDict()
         self._maxsize = maxsize
+        self._lock = threading.Lock()       # the ranks of a local group
 
     def __call__(self, cfg: ModelConfig, params, max_new: int,
                  temperature: float, quant: bool, eos_id: Optional[int],
-                 with_stats: bool, dev: torch.device) -> _Generate:
+                 with_stats: bool, dev: torch.device,
+                 mesh=None) -> _Generate:
+        # the mesh fingerprint is part of the key, as in the reference: a
+        # rank's program never serves another rank or the unsharded model
         key = (cfg, max_new, temperature, quant, eos_id, with_stats, str(dev),
-               fingerprint(params))
-        fn = self._data.get(key)
-        if fn is None:
-            fn = self._data[key] = _Generate(cfg, max_new, temperature,
-                                             quant, eos_id, with_stats, dev)
-        self._data.move_to_end(key)
-        while len(self._data) > self._maxsize:
-            self._data.popitem(last=False)
+               fingerprint(params), mesh_fingerprint(mesh))
+        with self._lock:
+            fn = self._data.get(key)
+            if fn is None:
+                fn = self._data[key] = _Generate(cfg, max_new, temperature,
+                                                 quant, eos_id, with_stats,
+                                                 dev)
+            self._data.move_to_end(key)
+            while len(self._data) > self._maxsize:
+                self._data.popitem(last=False)
         return fn
 
     def __len__(self) -> int:
@@ -531,21 +570,24 @@ def greedy_generate(cfg: ModelConfig, params, prompt: torch.Tensor,
                     max_new: int, *, temperature: float = 0.0,
                     generator: Optional[torch.Generator] = None,
                     quant: bool = False, eos_id: Optional[int] = None,
-                    with_stats: bool = False, device=None):
+                    with_stats: bool = False, device=None, mesh=None):
     """Batched generation, prefill then every decode step, as one program
     (on the card one CUDA-graph replay per call after the first).
     Returns tokens ``(B, max_new)``; with ``with_stats=True``, ``(tokens,
     stats)``.  ``generator`` drives temperature sampling (default: seed 0
-    on the device) and is advanced by the draws."""
+    on the device) and is advanced by the draws.  ``mesh``: a rank of a
+    sharded model, called inside ``mesh.run`` with the rank's shard of the
+    params (module docstring); every rank returns the same tokens."""
     if not isinstance(quant, bool):
         raise TypeError("greedy_generate takes quant as bool; build a "
                         "custom loop via make_decode_loop for a QuantCtx")
+    check_serving(mesh)
     dev, prompt = _check_inputs(params, prompt, device)
     if generator is None and temperature > 0.0:
         generator = torch.Generator(device=dev).manual_seed(0)
     fn = generate_fn(cfg, params, int(max_new), float(temperature), quant,
                      None if eos_id is None else int(eos_id),
-                     bool(with_stats), dev)
+                     bool(with_stats), dev, mesh)
     out = fn(params, prompt.to(torch.int32), generator)
     toks = out[0].clone()
     if not with_stats:
@@ -603,7 +645,8 @@ def _mask_recurrent_rows(layers, rows: torch.Tensor) -> None:
 
 
 def make_slot_serve_step(cfg: ModelConfig, quant: QuantFlag = False,
-                         with_stats: bool = False, *, paged: bool = False):
+                         with_stats: bool = False, *, paged: bool = False,
+                         mesh=None):
     """``(params, caches, tokens (B, 1), active (B,)[, page_table]) ->
     (logits, caches[, stats])``: one decode step of every slot.
 
@@ -616,7 +659,8 @@ def make_slot_serve_step(cfg: ModelConfig, quant: QuantFlag = False,
     (``init_paged_pool``); with ``cfg.paged_attn_kernel != "off"`` the read
     walks the table in the paged-attention kernel.  With
     ``with_stats=True`` the stats are the batch-aggregate plane traffic of
-    the step."""
+    the step.  ``mesh``: run inside its scope (module docstring)."""
+    check_serving(mesh)
     ctx = _quant_ctx(quant)
 
     def slot_step(params, caches, tokens, active, page_table=None):
@@ -647,7 +691,8 @@ def _last_real(logits: torch.Tensor, n_real: torch.Tensor) -> torch.Tensor:
     return torch.gather(logits, 1, idx)[:, 0]
 
 
-def make_slot_prefill(cfg: ModelConfig, quant: QuantFlag = False):
+def make_slot_prefill(cfg: ModelConfig, quant: QuantFlag = False,
+                      mesh=None):
     """``(params, prompt (B, bucket), true_len (B,), caches) -> (last-real
     logits (B, V), caches)``: bucketed prefill for slot admission.  The
     prompt is right-padded to its bucket; pads sit causally after every
@@ -665,7 +710,7 @@ def make_slot_prefill(cfg: ModelConfig, quant: QuantFlag = False):
 
 def make_slot_prefill_chunk(cfg: ModelConfig, quant: QuantFlag = False,
                             with_stats: bool = False, *,
-                            paged: bool = False):
+                            paged: bool = False, mesh=None):
     """``(params, pool, pool_logits, tokens (B, chunk_len), chunk_valid
     (B,), fresh (B,), finishing (B,)[, page_table]) -> (logits (B, V),
     pool[, stats])``: one prompt chunk per prefilling slot, written
@@ -681,6 +726,7 @@ def make_slot_prefill_chunk(cfg: ModelConfig, quant: QuantFlag = False,
     ``page_table``; a prefix-hit admission enters with ``fresh`` False and
     its length pre-set to the hit, so the chunk ingests only the suffix.
     """
+    check_serving(mesh)
     ctx = _quant_ctx(quant)
 
     def chunk_step(params, pool, pool_logits, tokens, chunk_valid, fresh,

@@ -60,8 +60,16 @@ snapshot itself, stay eager in-place writes and clones (the reference's
 (slots, page tables, the queue) is numpy, as in the reference.  Not
 ported: the deprecated keyword-argument constructor, ``audit_programs``
 (it traces and lowers JAX programs for the reference's jaxpr/HLO
-auditor, which has no counterpart for a CUDA graph), ``mesh=`` /
-``mesh_spec``.
+auditor, which has no counterpart for a CUDA graph).
+
+``mesh=`` (or ``config.mesh_spec``: the mesh of the rank's scope, or
+``launch.mesh.make_serve_mesh`` outside one) makes the scheduler one rank
+of a model sharded on the model axis: each rank builds its own scheduler inside
+``mesh.run`` from its shard of the params, allocates its pool once at
+its local shape (its kv heads, its SSD heads; ``models.model``), and
+makes the same host decisions, since every rank sees the same gathered
+logits.  The kv_quant codes, scales and tail rings and the SSM snapshots
+of the prefix cache follow the local heads with them.
 
 ``_defer_decode`` is the disaggregation hook (``serving/workers.py``'s
 ``PrefillEngine`` sets it): every finishing chunk row is held out of the
@@ -81,6 +89,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.logquant import dequantize_page_codes
+from repro_torch.launch.mesh import DATA_AXIS_REASON, spec_shape
 from repro_torch.models.attention import _quant_paged_write, page_slots
 from repro_torch.models.model import (ModelConfig, base_kind, init_caches,
                                       init_paged_pool)
@@ -174,7 +183,8 @@ class ServeScheduler:
     """
 
     def __init__(self, cfg: ModelConfig, params,
-                 config: Optional[ServeConfig] = None, *, device=None):
+                 config: Optional[ServeConfig] = None, *, device=None,
+                 mesh=None):
         if cfg.frontend != "none":
             raise ValueError("ServeScheduler serves token-id models only "
                              f"(frontend={cfg.frontend!r})")
@@ -183,10 +193,15 @@ class ServeScheduler:
         if not isinstance(config, ServeConfig):
             raise TypeError(f"ServeScheduler: config must be a ServeConfig,"
                             f" got {type(config).__name__}")
-        if config.mesh_spec is not None:
-            raise NotImplementedError(
-                f"mesh_spec={config.mesh_spec!r}: the port serves one card; "
-                f"multi-device serving is not ported yet")
+        if mesh is None and (spec_shape(config.mesh_spec) or (1,))[0] > 1:
+            raise NotImplementedError(f"mesh_spec={config.mesh_spec!r}: "
+                                      f"{DATA_AXIS_REASON}")
+        if mesh is None:
+            mesh = config.make_mesh()
+        if mesh is not None and mesh.size == 1:
+            mesh = None
+        engine.check_serving(mesh)
+        self.mesh = mesh
         dev = resolve_device(device)
         if params["embed"].device.type != dev.type:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -230,7 +245,7 @@ class ServeScheduler:
         # --- persistent pool (allocated exactly once) ----------------------
         if paged:
             self.max_blocks = config.max_blocks
-            self.n_pages = config.resolved_n_pages()
+            self.n_pages = config.resolved_n_pages(mesh)
             self._pool = init_paged_pool(cfg, max_slots, max_len,
                                          self.n_pages, self.page_len,
                                          dtype=cfg.dtype, device=dev)
@@ -275,12 +290,12 @@ class ServeScheduler:
                                     device=dev)
 
         quant = config.quant
-        self._slot_prefill = engine.make_slot_prefill(cfg, quant)
+        self._slot_prefill = engine.make_slot_prefill(cfg, quant, mesh=mesh)
         self._step = engine.make_slot_serve_step(cfg, quant,
                                                  with_stats=with_stats,
-                                                 paged=paged)
+                                                 paged=paged, mesh=mesh)
         self._chunk_step = (engine.make_slot_prefill_chunk(
-            cfg, quant, with_stats=with_stats, paged=paged)
+            cfg, quant, with_stats=with_stats, paged=paged, mesh=mesh)
             if self._needs_chunk_programs else None)
 
         # --- programs: one CUDA graph per static signature on the card ----

@@ -23,7 +23,12 @@ inputs (narrow, AlexNet at its size) in one launch a net, bit-equal to
 its plain version.  Training: one f32 smoke train step (smollm, mamba2,
 deepseek-moe) on the card against the host, and the flash-attention
 backward (``FlashAttention``) against torch autograd through the plain
-chunked forward, f32 and bf16, with no score-shaped tensor saved.
+chunked forward, f32 and bf16, with no score-shaped tensor saved.  The
+model axis on one card (ranks as threads of a local group): K2's
+row-parallel int32 partials summed to the one call at deepseek-moe-16b's
+and qwen3-32b's shapes, K3 and K4's split-KV runs spread over 2 and 4
+ranks bit-equal to the one-rank call, and a program that refuses to
+capture under a local group.
 
 Every test here is marked ``cuda`` and skips on a host without an NVIDIA
 GPU.  The file imports no JAX, so it runs where the card is:
@@ -1384,3 +1389,121 @@ def test_flash_function_matches_autograd_on_card(cuda, dtype, chunk):
         f32 = run(plain, *(t.float() for t in (q, k, v, do)))
         for x, y, r in zip(got, want, f32):
             assert rel(x, r) <= max(2 * rel(y, r), 2 ** -7)
+
+
+# ---------------------------------------------------------------------------
+# the model axis on one card: ranks as threads of a local group
+# ---------------------------------------------------------------------------
+
+def _local_mesh(m):
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import sharding as sh
+
+    return Mesh((1, m), sh.LocalGroup(m, timeout=120))
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("k,n", [(2048, 2048), (2816, 2048),   # deepseek
+                                 (8192, 5120), (25600, 5120)])  # qwen3
+def test_row_parallel_k2_partials_sum_to_one_call(cuda, k, n, m):
+    """Each rank's K2 launch on its run of K (x's columns and the packed
+    planes' rows), its int32 partial summed over the ranks in
+    ``quantized_linear_apply(reduce=True)``: the one call's int32 output
+    and its epilogue, bit for bit, at deepseek-moe-16b's and qwen3-32b's
+    row-parallel shapes (``wo``, the shared/dense ``down``)."""
+    from repro_torch.core.shiftadd import (QuantCtx, QuantizedLinearParams,
+                                           quantized_linear_apply)
+    from repro_torch.models import sharding as sh
+
+    x, _, _, packed = _fused(4, k, n, k + n, device=cuda)
+    gen = torch.Generator().manual_seed(n)
+    p = QuantizedLinearParams(
+        planes=packed, w_scale=(torch.rand((1, n), generator=gen) + 0.5)
+        .to(cuda), act_scale=torch.tensor(0.25, device=cuda), bias=None)
+    want_int = bm_ops.log2_bitplane_matmul(x, p.act_scale, packed)
+    want = quantized_linear_apply(p, x)
+    mesh = _local_mesh(m)
+    kl = k // m
+
+    def rank(r):
+        run = sh.rank_slice(kl)
+        local = p._replace(planes=packed[:, r * kl // 8:(r + 1) * kl // 8]
+                           .contiguous())
+        ctx = QuantCtx(capture=[])
+        y = quantized_linear_apply(local, x[:, run].contiguous(), ctx=ctx,
+                                   reduce=True)
+        return ctx.capture[0][4], y
+
+    got = mesh.run(rank)
+    total = got[0][0]
+    for part, _ in got[1:]:
+        total = total + part
+    torch.cuda.synchronize()
+    assert torch.equal(total, want_int)
+    for _, y in got:
+        assert torch.equal(y, want)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("quant", [False, True], ids=["k3", "k4"])
+@pytest.mark.parametrize("g,r,d", [(3, 3, 64), (8, 8, 128)])
+def test_split_kv_over_local_ranks_bit_equal(cuda, g, r, d, quant, m):
+    """``attn_splits`` 4 spread over 2 and 4 ranks (each launching K3 or
+    K4 on its run of splits, the partials gathered along the split axis and
+    merged): bit-equal to the one-rank call, at smollm-135m's and
+    qwen3-32b's geometries, rows up to 512 tokens."""
+    page_len, nb = 16, 32
+    if quant:
+        q, *pools, table, lens = _quant_case(page_len, nb, g, r, d,
+                                             LONG_LENGTHS, 4,
+                                             torch.bfloat16, g + d, 0, cuda)
+        attend = pa_ops.paged_decode_attention_quant
+        kern = pa_ops.paged_attention_quant
+    else:
+        gen = torch.Generator().manual_seed(g + d)
+        n_pages = 1 + len(LONG_LENGTHS) * nb
+        q = torch.randn((len(LONG_LENGTHS), 1, g * r, d), generator=gen)
+        pools = [torch.randn((n_pages, page_len, g, d), generator=gen)
+                 .to(torch.bfloat16).to(cuda) for _ in range(2)]
+        q = q.to(torch.bfloat16).to(cuda)
+        table = torch.from_numpy(pa_ops.make_page_table(
+            LONG_LENGTHS, nb, page_len)).to(cuda)
+        lens = torch.tensor(LONG_LENGTHS, dtype=torch.int32, device=cuda)
+        attend, kern = pa_ops.paged_decode_attention, pa_ops.paged_attention
+    want = attend(q, *pools, table, lens, splits=4)
+    mesh = _local_mesh(m)
+    before = kern.launches
+    got = mesh.run(lambda _: attend(q, *pools, table, lens, splits=4,
+                                    spread=True))
+    torch.cuda.synchronize()
+    assert kern.launches == before + m          # one launch a rank
+    for out in got:
+        assert torch.equal(out, want)
+
+
+def test_program_refuses_capture_under_a_local_group(cuda):
+    """A CUDA graph cannot hold a local group's hand-overs on the host: a
+    program called in the scope of a local group raises unless under
+    ``engine.eager()``, where it runs its body."""
+    from repro_torch.models import sharding as sh
+    from repro_torch.serving import engine
+
+    mesh = _local_mesh(2)
+
+    def body(x):
+        return (sh.all_reduce(x * 2),)
+
+    def rank(_):
+        prog = engine.Program(body, name="sum", device=cuda)
+        with pytest.raises(RuntimeError, match="engine.eager"):
+            prog(torch.ones(3, device=cuda))
+        return prog
+    progs = mesh.run(rank)
+    assert all(engine.compiled_size(p) == 1 and p.entries()[0].graph is None
+               for p in progs)
+    with engine.eager():
+        outs = mesh.run(lambda r: engine.Program(body, name="sum",
+                                                 device=cuda)(
+            torch.full((3,), float(r + 1), device=cuda))[0])
+    assert all(torch.equal(o, torch.full((3,), 6.0, device=cuda))
+               for o in outs)

@@ -57,7 +57,10 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
                  "repro_torch.tree", "repro_torch.data.pipeline",
                  "repro_torch.optim.adamw", "repro_torch.train.trainer",
                  "repro_torch.checkpoint.manager",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train", "repro_torch.launch.mesh",
+                 "repro_torch.launch.policy", "repro_torch.launch.shardings",
+                 "repro_torch.launch.host_devices",
+                 "repro_torch.models.sharding"):
         assert want in mods, want
     files = {p for p in PORT.rglob("*.py") if "build" not in p.parts}
     assert len(mods) + 1 >= len(files)      # + the package's __init__
